@@ -1,0 +1,299 @@
+// Flash attention forward for Hopper (sm_90a), plain CUDA C++.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
+// (flash_attention / _flash_kernel): softmax(q k^T * scale + mask) v as an
+// online softmax over K tiles, with GQA (query head h reads KV head
+// h*KV/H), causal and sliding-window masks, queries right-aligned when
+// Sq < Sk, wholly masked tiles skipped, masked logits -1e30 and the
+// denominator clamped at 1e-30.  Running max, sum and accumulator are fp32;
+// the output takes q's dtype.
+//
+// Design.  One thread block per (64-query tile, query head, batch row).
+// The TPU kernel carried its running max/sum/accumulator across a
+// sequential ("arbitrary") grid axis; here a loop over K tiles inside the
+// block takes that axis' place.  Each K tile is staged in shared memory as
+// fp32, scores go to shared memory, four threads per query row update the
+// online softmax, and the P.V product accumulates in registers.  V of the
+// tile reuses K's buffer once the scores are written, which keeps the block
+// at 83 KB of shared memory for head_dim 128 (two blocks per SM).
+//
+// Bound.  At the serving shape (B 4, H 28, KV 4, S 512, hd 128, causal,
+// bf16) the work is ~7.5 GFLOP over ~34 MB of q/k/v/o: ~7.6 us at the
+// tensor-core rate and ~10 us at the memory rate of an H100 SXM (989
+// TFLOP/s bf16, 3.35 TB/s), so bytes bound it.  This first kernel runs its
+// products on the fp32 CUDA cores, without wgmma, TMA or pipelining, and
+// sits far above that bound; making it fast is later work.
+//
+// Layout: q [B, Sq, H, hd], k/v [B, Sk, KV, hd], o [B, Sq, H, hd], each
+// with its own batch/sequence/head strides (in elements) and head_dim
+// contiguous, so the model's [B, S, H, hd] tensors need no transpose.  The
+// ragged edge (S not a multiple of 64) is masked in the kernel.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int BLOCK_Q = 64;
+constexpr int BLOCK_K = 64;
+constexpr int THREADS = 256;
+constexpr int LDP = BLOCK_K + 1;  // padded row stride of the score tile
+constexpr float NEG_INF = -1e30f;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int B, H, KV, Sq, Sk;
+  int64_t q_sb, q_ss, q_sh;
+  int64_t k_sb, k_ss, k_sh;
+  int64_t v_sb, v_ss, v_sh;
+  int64_t o_sb, o_ss, o_sh;
+  float scale;
+  int causal, window;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+static_assert(BLOCK_Q == BLOCK_K, "load_tile stages square tiles");
+static_assert(THREADS == 4 * BLOCK_Q, "four threads per query row");
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  // Q tile + one K/V tile (rows padded to HD + 1), score tile, m/l/alpha.
+  return sizeof(float) *
+         ((BLOCK_Q + BLOCK_K) * (HD + 1) + BLOCK_Q * LDP + 3 * BLOCK_Q);
+}
+
+// Stage rows [row0, row0 + BLOCK_K) of one head into shared memory as
+// fp32, zero-filling rows at or past n_rows.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          int64_t row_stride, int row0,
+                                          int n_rows) {
+  constexpr int LD = HD + 1;
+  for (int i = threadIdx.x; i < BLOCK_K * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    const int row = row0 + r;
+    dst[r * LD + d] = row < n_rows ? to_float(src[row * row_stride + d]) : 0.f;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(Params p) {
+  constexpr int LD = HD + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // [BLOCK_Q][LD]
+  float* KVs = Qs + BLOCK_Q * LD;    // [BLOCK_K][LD]: K, then V, of one tile
+  float* Ps = KVs + BLOCK_K * LD;    // [BLOCK_Q][LDP]: scores, then probs
+  float* m_s = Ps + BLOCK_Q * LDP;   // running max per query row
+  float* l_s = m_s + BLOCK_Q;        // running sum per query row
+  float* a_s = l_s + BLOCK_Q;        // rescale factor of the current tile
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BLOCK_Q;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h * p.KV / p.H;
+  const int off = p.Sk - p.Sq;  // queries are right-aligned
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  load_tile<T, HD>(Qs, q, p.q_ss, q0, p.Sq);
+  if (tid < BLOCK_Q) {
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
+  }
+
+  // Score mapping: a 16 x 16 thread grid, 4 x 4 scores per thread
+  // (rows sy*4 + i, columns sx + 16*j).
+  const int sx = tid % 16, sy = tid / 16;
+  // Accumulator mapping: TX threads across head_dim, RPT rows x CPT
+  // columns per thread (rows ay*RPT + i, columns ax + TX*j).
+  constexpr int TX = HD < 32 ? HD : 32;
+  constexpr int TY = THREADS / TX;
+  constexpr int RPT = BLOCK_Q / TY;
+  constexpr int CPT = HD / TX;
+  const int ax = tid % TX, ay = tid / TX;
+  float acc[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+
+  // Key range any row of this tile can see; tiles outside it are skipped.
+  const int q_last = min(q0 + BLOCK_Q, p.Sq) - 1;
+  const int k_lo = p.window ? max(0, q0 + off - p.window + 1) : 0;
+  const int k_hi = p.causal ? min(p.Sk - 1, q_last + off) : p.Sk - 1;
+  const int t_lo = k_lo / BLOCK_K;
+  const int t_end = k_hi >= k_lo ? k_hi / BLOCK_K + 1 : t_lo;
+
+  for (int t = t_lo; t < t_end; ++t) {
+    const int k0 = t * BLOCK_K;
+    __syncthreads();  // Q staged; the previous tile's V and P are consumed
+    load_tile<T, HD>(KVs, k, p.k_ss, k0, p.Sk);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(sy * 4 + i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = KVs[(sx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = sy * 4 + i;
+      const int q_pos = q0 + r + off;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = sx + 16 * j;
+        const int k_pos = k0 + c;
+        bool live = k_pos < p.Sk;
+        if (p.causal) live = live && k_pos <= q_pos;
+        if (p.window) live = live && k_pos > q_pos - p.window;
+        Ps[r * LDP + c] = live ? s[i][j] * p.scale : NEG_INF;
+      }
+    }
+    __syncthreads();  // scores written, K no longer read
+
+    load_tile<T, HD>(KVs, v, p.v_ss, k0, p.Sk);
+    {
+      // Online softmax: four neighbouring lanes share a row, 16 columns
+      // each, and combine their max and sum by shuffles.
+      constexpr int COLS = BLOCK_K / 4;
+      const int r = tid / 4, part = tid % 4;
+      float* row = Ps + r * LDP + part * COLS;
+      const float m_prev = m_s[r];
+      float m_new = m_prev;
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) m_new = fmaxf(m_new, row[c]);
+      m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 1));
+      m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        const float e = expf(row[c] - m_new);
+        row[c] = e;
+        sum += e;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (part == 0) {
+        const float alpha = expf(m_prev - m_new);
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+        a_s[r] = alpha;
+      }
+    }
+    __syncthreads();  // V staged, probabilities and alpha ready
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float alpha = a_s[ay * RPT + i];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) acc[i][j] *= alpha;
+    }
+#pragma unroll 4
+    for (int c = 0; c < BLOCK_K; ++c) {
+      float vv[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) vv[j] = KVs[c * LD + ax + TX * j];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float pr = Ps[(ay * RPT + i) * LDP + c];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(pr, vv[j], acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();  // l_s final (also when no tile was live)
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = ay * RPT + i;
+    const int qi = q0 + r;
+    if (qi >= p.Sq) continue;
+    const float denom = fmaxf(l_s[r], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      o[qi * p.o_ss + ax + TX * j] = from_float<T>(acc[i][j] / denom);
+  }
+}
+
+template <typename T, int HD>
+int launch(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.Sq + BLOCK_Q - 1) / BLOCK_Q, p.H, p.B);
+  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_hd(const Params& p, int head_dim, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch<T, 16>(p, stream);
+    case 64: return launch<T, 64>(p, stream);
+    case 128: return launch<T, 128>(p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, the
+// (batch, sequence, head) strides of q, k, v and o in that order.  Returns
+// the CUDA error of the launch (0 on success); launches on `stream` and
+// does not synchronise.
+extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
+                                   const void* v, void* o, int B, int H,
+                                   int KV, int Sq, int Sk, int head_dim,
+                                   const int64_t* strides, float scale,
+                                   int causal, int window, void* stream) {
+  Params p{q, k, v, o, B, H, KV, Sq, Sk,
+           strides[0], strides[1], strides[2],
+           strides[3], strides[4], strides[5],
+           strides[6], strides[7], strides[8],
+           strides[9], strides[10], strides[11],
+           scale, causal, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_hd<float>(p, head_dim, s);
+    case 1: return launch_hd<__nv_bfloat16>(p, head_dim, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

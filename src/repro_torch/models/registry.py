@@ -1,0 +1,69 @@
+"""Uniform model API, serving functions of the dense family.
+
+Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
+``Model`` whose functions cover the serving path:
+
+  init(seed)                       -> params, drawn on the device
+  prefill(params, batch, max_seq)  -> (logits, cache)
+  decode(params, token, cache)     -> (logits, cache)
+  init_cache(batch, max_seq)       -> cache
+
+``loss`` raises until the training slice of the port; the families other
+than ``dense`` raise when the model is asked for.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+_LATER_SLICE = {
+    "ssm": "the Mamba-2 serving slice",
+    "hybrid": "a later slice (Mamba-2 and MoE units)",
+    "moe": "the MoE slice",
+    "encdec": "the encoder-decoder slice",
+    "vlm": "the VLM slice",
+}
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable[..., Any]
+    loss: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode: Callable[..., Any]
+    init_cache: Callable[..., Any]
+
+
+def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is ported in "
+            f"{_LATER_SLICE.get(cfg.family, 'a later slice')}")
+    device = torch.device(device)
+
+    def init(seed: int):
+        generator = torch.Generator(device=device).manual_seed(seed)
+        return transformer.init_lm(generator, cfg, device)
+
+    def loss(params, batch):
+        raise NotImplementedError("the loss comes with the training slice "
+                                  "of the port")
+
+    def prefill_fn(params, batch, max_seq):
+        return transformer.prefill(params, batch["tokens"], cfg, max_seq)
+
+    def decode_fn(params, token, cache):
+        return transformer.decode_step(params, token, cache, cfg)
+
+    def init_cache(batch: int, max_seq: int):
+        return transformer.init_decode_cache(cfg, batch, max_seq, device)
+
+    return Model(cfg, init, loss, prefill_fn, decode_fn, init_cache)

@@ -1,0 +1,180 @@
+"""Decoder-only LM backbone, serving path, dense units.
+
+Port of ``repro.models.transformer`` for the dense families.  Layers are
+grouped into the same repeating *units* as in the JAX module
+(``unit_layout``), but parameters are a list with one dict per unit in
+place of arrays stacked over units, and the ``lax.scan`` over units becomes
+a loop.  Every RMSNorm goes through ``ops.rmsnorm`` (the Triton kernel on
+the card), every prefill attention through ``ops.flash_attention`` (the
+CUDA kernel on the card).
+
+MoE and Mamba units raise ``NotImplementedError``: they come with the MoE
+and Mamba-2 slices of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models.common import cdtype, dense_init, embed_init
+from repro_torch.models.mlp import init_mlp, mlp
+
+
+def unit_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
+    if cfg.family == "hybrid":
+        unit_len = cfg.attn_layer_period
+    elif cfg.is_moe and cfg.moe_layer_period > 1:
+        unit_len = cfg.moe_layer_period
+    else:
+        unit_len = 1
+    if cfg.n_layers % unit_len:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} not divisible "
+                         f"by unit length {unit_len}")
+    layout = []
+    for i in range(unit_len):
+        mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+        if cfg.d_ff <= 0:
+            ffn = None
+        elif cfg.is_moe_layer(i):
+            ffn = "moe"
+        else:
+            ffn = "mlp"
+        layout.append({"mixer": mixer, "ffn": ffn})
+    return layout
+
+
+def n_units(cfg: ModelConfig) -> int:
+    return cfg.n_layers // len(unit_layout(cfg))
+
+
+def _dense_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
+    layout = unit_layout(cfg)
+    for sub in layout:
+        if sub["mixer"] == "mamba":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba units come with the Mamba-2 slice of the "
+                "port")
+        if sub["ffn"] == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE units come with the MoE slice of the port")
+    return layout
+
+
+def _init_unit(generator, cfg: ModelConfig, dtype, device) -> dict:
+    p: dict[str, Any] = {}
+    for j, sub in enumerate(_dense_layout(cfg)):
+        sp: dict[str, Any] = {
+            "mixer_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                     device=device),
+            "attn": attn.init_attn(generator, cfg, dtype, device)}
+        if sub["ffn"]:
+            sp["ffn_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                        device=device)
+            sp["mlp"] = init_mlp(generator, cfg, dtype, device)
+        p[f"sub{j}"] = sp
+    return p
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """Random weights drawn on ``device`` from ``generator`` (a generator on
+    that device), with the JAX module's distributions."""
+    dtype = cdtype(cfg)
+    params = {
+        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
+                            device),
+        "units": [_init_unit(generator, cfg, dtype, device)
+                  for _ in range(n_units(cfg))],
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model,
+                                       (cfg.vocab_size,), dtype, device)
+    return params
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig):
+    return params["embed"][tokens]
+
+
+def lm_head(params, h, cfg: ModelConfig):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return h @ w
+
+
+# ----------------------------------------------------------------- serving
+
+class LayerCache(NamedTuple):
+    """Per-unit decode state: one KVCache per attention sub-layer."""
+
+    kv: tuple[attn.KVCache, ...]
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                      device) -> list[LayerCache]:
+    dtype = cdtype(cfg)
+    n_attn = sum(1 for s in _dense_layout(cfg) if s["mixer"] == "attn")
+    return [LayerCache(kv=tuple(attn.init_cache(cfg, batch, max_seq, dtype,
+                                                device)
+                                for _ in range(n_attn)))
+            for _ in range(n_units(cfg))]
+
+
+def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int):
+    kvs = []
+    for j, sub in enumerate(_dense_layout(cfg)):
+        sp = up[f"sub{j}"]
+        x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
+        y, kv = attn.attend_prefill(sp["attn"], x, cfg, max_seq)
+        kvs.append(kv)
+        h = h + y
+        if sub["ffn"]:
+            x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
+            h = h + mlp(sp["mlp"], x, cfg)
+    return h, LayerCache(kv=tuple(kvs))
+
+
+def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
+    """Full-context pass -> (last-position logits [B, V], per-unit caches).
+
+    The final norm and the LM head run on the last position only: the norm
+    is per row, so this is the JAX module's result without the [B, S, V]
+    logits.
+    """
+    h = embed_tokens(params, tokens, cfg)
+    caches = []
+    for up in params["units"]:
+        h, cache = _apply_unit_prefill(h, up, cfg, max_seq)
+        caches.append(cache)
+    h = ops.rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+    return lm_head(params, h, cfg)[:, 0], caches
+
+
+def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig):
+    kvs = []
+    for j, sub in enumerate(_dense_layout(cfg)):
+        sp = up[f"sub{j}"]
+        x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
+        y, kv = attn.attend_decode(sp["attn"], x, cache.kv[len(kvs)], cfg)
+        kvs.append(kv)
+        h = h + y
+        if sub["ffn"]:
+            x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
+            h = h + mlp(sp["mlp"], x, cfg)
+    return h, LayerCache(kv=tuple(kvs))
+
+
+def decode_step(params, token, cache: list[LayerCache], cfg: ModelConfig):
+    """token [B, 1] + caches -> (logits [B, V], caches).  The K/V buffers
+    are updated in place (see ``attention.attend_decode``)."""
+    h = embed_tokens(params, token, cfg)
+    new_caches = []
+    for up, ucache in zip(params["units"], cache):
+        h, new = _apply_unit_decode(h, up, ucache, cfg)
+        new_caches.append(new)
+    h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return lm_head(params, h, cfg)[:, 0], new_caches
