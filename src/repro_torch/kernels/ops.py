@@ -14,8 +14,9 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
-KERNELS = {"flash_attention": _fa, "rmsnorm": _rn}
+KERNELS = {"flash_attention": _fa, "rmsnorm": _rn, "ssd_scan": _ssd}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -34,6 +35,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
     return _rn.rmsnorm(x, scale, eps)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+             initial_state: torch.Tensor | None = None):
+    """x [B,S,H,P], dt [B,S,H] fp32, A [H] fp32, Bm/Cm [B,S,N], optional
+    fp32 initial state [B,H,P,N] -> (y like x, final state fp32)."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                         initial_state=initial_state)
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,12 +3,14 @@ of a few decode steps on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2-7b \\
         --batch 4 --prompt-len 512 --decode-steps 4
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch mamba2-370m --prompt-len 2048
 
 For each phase it prints the host-clock wall time (ending in a
 synchronize), the device-busy time (the union of the kernels' intervals in
 the trace), the idle share between them, the number of kernels launched,
-and the device time per kernel group (flash attention, rmsnorm, matrix
-products, the rest).  The phases run after one untraced warm-up pass.
+and the device time per kernel group (flash attention, the SSD scan,
+rmsnorm, matrix products, the rest).  The phases run after one untraced warm-up pass.
 Fails if the trace holds no device events.
 """
 
@@ -30,6 +32,8 @@ from repro_torch.models import get_model
 def _group(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_attention"
+    if "ssd_scan_kernel" in name:
+        return "ssd_scan"
     if "rmsnorm_fwd" in name:
         return "rmsnorm"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass",

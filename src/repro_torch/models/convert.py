@@ -2,8 +2,10 @@
 
 The JAX tree stacks the units as ``units/sub{j}/...`` arrays of shape
 [U, ...]; the port keeps a list with one dict per unit.  Weights stay
-[in, out] for ``x @ w`` on both sides, so nothing is transposed.  This is
-how the tests make the JAX model and the port compute the same function.
+[in, out] for ``x @ w`` on both sides, so nothing is transposed.  Each leaf
+takes the dtype the JAX init gives it: the config's dtype, except the Mamba
+leaves that stay float32 (``mamba.FP32_PARAMS``).  This is how the tests
+make the JAX model and the port compute the same function.
 """
 
 from __future__ import annotations
@@ -13,26 +15,28 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import cdtype
+from repro_torch.models.mamba import FP32_PARAMS
 from repro_torch.models.transformer import n_units
 
 
-def _map(tree: dict, fn) -> dict:
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def _map(tree: dict, fn, path: tuple[str, ...] = ()) -> dict:
+    return {k: _map(v, fn, path + (k,)) if isinstance(v, dict)
+            else fn(path + (k,), v) for k, v in tree.items()}
 
 
 def from_jax_params(tree: dict, cfg: ModelConfig,
                     device: str | torch.device = "cuda") -> dict:
     """``tree``: the JAX ``init_lm`` parameter dict with numpy (or any
-    array-like) leaves.  Returns the port's parameter dict on ``device`` in
-    the config's dtype."""
-    dtype = cdtype(cfg)
+    array-like) leaves.  Returns the port's parameter dict on ``device``,
+    each leaf in the dtype the JAX init gives it."""
 
-    def tensor(a) -> torch.Tensor:
+    def tensor(path: tuple[str, ...], a) -> torch.Tensor:
+        fp32 = len(path) >= 2 and path[-2] == "mamba" and path[-1] in FP32_PARAMS
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype)
+            device=device, dtype=torch.float32 if fp32 else cdtype(cfg))
 
-    params = {k: tensor(v) for k, v in tree.items() if k != "units"}
-    params["units"] = [_map(tree["units"], lambda a, u=u: tensor(np.asarray(a)[u]))
-                       for u in range(n_units(cfg))]
+    params = {k: tensor((k,), v) for k, v in tree.items() if k != "units"}
+    params["units"] = [
+        _map(tree["units"], lambda path, a, u=u: tensor(path, np.asarray(a)[u]))
+        for u in range(n_units(cfg))]
     return params

@@ -1,4 +1,4 @@
-"""Uniform model API, serving functions of the dense family.
+"""Uniform model API, serving functions of the dense, SSM and hybrid families.
 
 Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
 ``Model`` whose functions cover the serving path:
@@ -8,8 +8,9 @@ Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
   decode(params, token, cache)     -> (logits, cache)
   init_cache(batch, max_seq)       -> cache
 
-``loss`` raises until the training slice of the port; the families other
-than ``dense`` raise when the model is asked for.
+``loss`` raises until the training slice of the port.  A config with MoE
+layers (the ``moe`` family, a hybrid with experts), and the ``encdec`` and
+``vlm`` families, raise when the model is asked for.
 """
 
 from __future__ import annotations
@@ -24,9 +25,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 _LATER_SLICE = {
-    "ssm": "the Mamba-2 serving slice",
-    "hybrid": "a later slice (Mamba-2 and MoE units)",
-    "moe": "the MoE slice",
     "encdec": "the encoder-decoder slice",
     "vlm": "the VLM slice",
 }
@@ -43,10 +41,11 @@ class Model:
 
 
 def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if cfg.family != "dense":
+    if cfg.family in _LATER_SLICE:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is ported in "
-            f"{_LATER_SLICE.get(cfg.family, 'a later slice')}")
+            f"{_LATER_SLICE[cfg.family]}")
+    transformer.ported_layout(cfg)   # raises for MoE units
     device = torch.device(device)
 
     def init(seed: int):

@@ -1,15 +1,17 @@
-"""Decoder-only LM backbone, serving path, dense units.
+"""Decoder-only LM backbone, serving path: dense, SSM and hybrid units.
 
-Port of ``repro.models.transformer`` for the dense families.  Layers are
-grouped into the same repeating *units* as in the JAX module
-(``unit_layout``), but parameters are a list with one dict per unit in
-place of arrays stacked over units, and the ``lax.scan`` over units becomes
-a loop.  Every RMSNorm goes through ``ops.rmsnorm`` (the Triton kernel on
-the card), every prefill attention through ``ops.flash_attention`` (the
-CUDA kernel on the card).
+Port of ``repro.models.transformer`` for units of attention or Mamba-2
+mixers with an optional dense FFN (the dense family, mamba2, and the
+hybrid's layout without MoE).  Layers are grouped into the same repeating
+*units* as in the JAX module (``unit_layout``), but parameters are a list
+with one dict per unit in place of arrays stacked over units, and the
+``lax.scan`` over units becomes a loop.  Every RMSNorm goes through
+``ops.rmsnorm`` (the Triton kernel on the card), every prefill attention
+through ``ops.flash_attention`` and every prefill SSD scan through
+``ops.ssd_scan`` (the CUDA kernels on the card).
 
-MoE and Mamba units raise ``NotImplementedError``: they come with the MoE
-and Mamba-2 slices of the port.
+MoE units raise ``NotImplementedError``: they come with the MoE slice of
+the port.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models.common import cdtype, dense_init, embed_init
 from repro_torch.models.mlp import init_mlp, mlp
 
@@ -52,26 +55,25 @@ def n_units(cfg: ModelConfig) -> int:
     return cfg.n_layers // len(unit_layout(cfg))
 
 
-def _dense_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
+def ported_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
+    """``unit_layout``, raising ``NotImplementedError`` for MoE units."""
     layout = unit_layout(cfg)
-    for sub in layout:
-        if sub["mixer"] == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba units come with the Mamba-2 slice of the "
-                "port")
-        if sub["ffn"] == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE units come with the MoE slice of the port")
+    if any(sub["ffn"] == "moe" for sub in layout):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE units come with the MoE slice of the port")
     return layout
 
 
 def _init_unit(generator, cfg: ModelConfig, dtype, device) -> dict:
     p: dict[str, Any] = {}
-    for j, sub in enumerate(_dense_layout(cfg)):
-        sp: dict[str, Any] = {
-            "mixer_norm": torch.ones((cfg.d_model,), dtype=dtype,
-                                     device=device),
-            "attn": attn.init_attn(generator, cfg, dtype, device)}
+    for j, sub in enumerate(ported_layout(cfg)):
+        sp: dict[str, Any] = {"mixer_norm": torch.ones((cfg.d_model,),
+                                                       dtype=dtype,
+                                                       device=device)}
+        if sub["mixer"] == "attn":
+            sp["attn"] = attn.init_attn(generator, cfg, dtype, device)
+        else:
+            sp["mamba"] = mb.init_mamba(generator, cfg, dtype, device)
         if sub["ffn"]:
             sp["ffn_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
                                         device=device)
@@ -109,33 +111,43 @@ def lm_head(params, h, cfg: ModelConfig):
 # ----------------------------------------------------------------- serving
 
 class LayerCache(NamedTuple):
-    """Per-unit decode state: one KVCache per attention sub-layer."""
+    """Per-unit decode state: one KVCache per attention sub-layer and one
+    MambaState per Mamba sub-layer, in layout order."""
 
     kv: tuple[attn.KVCache, ...]
+    ssm: tuple[mb.MambaState, ...]
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> list[LayerCache]:
     dtype = cdtype(cfg)
-    n_attn = sum(1 for s in _dense_layout(cfg) if s["mixer"] == "attn")
-    return [LayerCache(kv=tuple(attn.init_cache(cfg, batch, max_seq, dtype,
-                                                device)
-                                for _ in range(n_attn)))
+    layout = ported_layout(cfg)
+    n_attn = sum(1 for s in layout if s["mixer"] == "attn")
+    n_mamba = len(layout) - n_attn
+    return [LayerCache(
+        kv=tuple(attn.init_cache(cfg, batch, max_seq, dtype, device)
+                 for _ in range(n_attn)),
+        ssm=tuple(mb.init_mamba_state(cfg, batch, dtype, device)
+                  for _ in range(n_mamba)))
             for _ in range(n_units(cfg))]
 
 
 def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int):
-    kvs = []
-    for j, sub in enumerate(_dense_layout(cfg)):
+    kvs, ssms = [], []
+    for j, sub in enumerate(ported_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
-        y, kv = attn.attend_prefill(sp["attn"], x, cfg, max_seq)
-        kvs.append(kv)
+        if sub["mixer"] == "attn":
+            y, kv = attn.attend_prefill(sp["attn"], x, cfg, max_seq)
+            kvs.append(kv)
+        else:
+            y, st = mb.mamba_forward(sp["mamba"], x, cfg)
+            ssms.append(st)
         h = h + y
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
             h = h + mlp(sp["mlp"], x, cfg)
-    return h, LayerCache(kv=tuple(kvs))
+    return h, LayerCache(kv=tuple(kvs), ssm=tuple(ssms))
 
 
 def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
@@ -155,22 +167,27 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
 
 
 def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig):
-    kvs = []
-    for j, sub in enumerate(_dense_layout(cfg)):
+    kvs, ssms = [], []
+    for j, sub in enumerate(ported_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
-        y, kv = attn.attend_decode(sp["attn"], x, cache.kv[len(kvs)], cfg)
-        kvs.append(kv)
+        if sub["mixer"] == "attn":
+            y, kv = attn.attend_decode(sp["attn"], x, cache.kv[len(kvs)], cfg)
+            kvs.append(kv)
+        else:
+            y, st = mb.mamba_decode(sp["mamba"], x, cfg, cache.ssm[len(ssms)])
+            ssms.append(st)
         h = h + y
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
             h = h + mlp(sp["mlp"], x, cfg)
-    return h, LayerCache(kv=tuple(kvs))
+    return h, LayerCache(kv=tuple(kvs), ssm=tuple(ssms))
 
 
 def decode_step(params, token, cache: list[LayerCache], cfg: ModelConfig):
     """token [B, 1] + caches -> (logits [B, V], caches).  The K/V buffers
-    are updated in place (see ``attention.attend_decode``)."""
+    are updated in place (see ``attention.attend_decode``); the Mamba
+    states are replaced."""
     h = embed_tokens(params, token, cfg)
     new_caches = []
     for up, ucache in zip(params["units"], cache):

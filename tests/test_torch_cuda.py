@@ -6,7 +6,12 @@ machine with a card (no JAX needed):
 
 Inputs come from numpy with a seed.  Tolerances: float32 2e-5 (the same
 sums in another order), bfloat16 2e-2 (one bf16 rounding of the output, and
-of the attention weights in the plain version).
+of the attention weights in the plain version).  The SSD scan: y in
+bfloat16 3e-2 (one rounding of the output; both sides compute in fp32);
+y in float32, and the fp32 state, 2e-4 relative and 2e-4 of the largest
+entry: exp of differences of a chunk's cumulative sum of dt*A, summed in
+another order, errs by ~|cumsum| * 2^-24, and over a 256-row chunk that
+reaches ~1e-4 of the largest term where the terms cancel.
 """
 
 import numpy as np
@@ -16,6 +21,7 @@ import torch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import ssd_scan as tssd
 
 TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
         "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -109,3 +115,83 @@ def test_cuda_rmsnorm_strided_rows(cuda):
     np.testing.assert_allclose(_np(got), _np(ref.rmsnorm_ref(h[:, -1:], scale,
                                                              1e-6)),
                                **TOLS["float32"])
+
+
+GPU_SSD = [  # (B, S, H, P, N, chunk, dtype); the cases of test_kernels.py
+    (1, 128, 8, 16, 16, 32, "float32"),
+    (2, 256, 4, 32, 64, 64, "float32"),
+    (1, 64, 16, 64, 128, 64, "float32"),
+    (2, 300, 4, 64, 128, 256, "float32"),   # ragged: a partial last chunk
+    (1, 200, 4, 64, 128, 64, "float32"),    # ragged inside the last tile
+    (1, 128, 8, 16, 16, 32, "bfloat16"),
+    (2, 256, 4, 32, 64, 64, "bfloat16"),
+    (1, 64, 16, 64, 128, 64, "bfloat16"),
+    (2, 300, 4, 64, 128, 256, "bfloat16"),
+]
+SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _assert_ssd_close(got, want, tol, scaled):
+    """allclose at rtol ``tol`` and atol ``tol``, times the largest |want|
+    when ``scaled``."""
+    want = _np(want)
+    atol = tol * max(1.0, float(np.abs(want).max())) if scaled else tol
+    np.testing.assert_allclose(_np(got), want, rtol=tol, atol=atol)
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, device, strided):
+    """x, Bm and Cm as the model passes them: slices of one [B, S, H*P + 2N]
+    conv output when ``strided``."""
+    xbc = _torch(_normal(0, (B, S, H * P + 2 * N)), dtype, device)
+    if not strided:
+        xbc = xbc.clone()
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    if not strided:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = torch.nn.functional.softplus(_torch(_normal(1, (B, S, H)), "float32",
+                                             device))
+    A = -torch.exp(0.5 * _torch(_normal(2, (H,)), "float32", device))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", GPU_SSD)
+def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
+                                     strided, with_state):
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype, cuda, strided)
+    assert x.is_contiguous() != strided
+    init = (_torch(0.5 * _normal(3, (B, H, P, N)), "float32", cuda)
+            if with_state else None)
+    before = tssd.launches
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert tssd.launches == before + 1
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    want_y, want_st = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init)
+    _assert_ssd_close(y, want_y, SSD_TOL[dtype], scaled=dtype == "float32")
+    _assert_ssd_close(st, want_st, SSD_TOL["float32"], scaled=True)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_refuses_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 4, 16, 16, "float32", cuda, False)
+    before = tssd.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tssd.ssd_scan(x.cpu(), dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="dtype"):
+        tssd.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        tssd.ssd_scan(x, dt.bfloat16(), A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="head_dim, state"):
+        _, _, _, Bm32, Cm32 = _ssd_inputs(1, 64, 4, 16, 32, "float32", cuda,
+                                          False)
+        tssd.ssd_scan(x, dt, A, Bm32, Cm32, chunk=32)
+    with pytest.raises(ValueError, match="contiguous last"):
+        tssd.ssd_scan(x.transpose(-1, -2).contiguous().transpose(-1, -2),
+                      dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_scan(x, dt, A, Bm, Cm, chunk=0)
+    assert tssd.launches == before

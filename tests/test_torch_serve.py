@@ -116,7 +116,25 @@ def test_generate_on_cpu_runs_the_plain_path():
     assert bool(r["finite"]) and r["logits"].shape == (3, cfg.vocab_size)
     assert int(r["tokens"].min()) >= 0
     assert int(r["tokens"].max()) < cfg.vocab_size
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                                   "ssd_scan": 0}
+
+
+def test_generate_mamba_on_cpu_runs_the_plain_path():
+    cfg = get_config("mamba2-370m-smoke")
+    model = get_model(cfg, device="cpu")
+    params = model.init(0)
+    assert len(params["units"]) == cfg.n_layers
+    assert params["units"][0]["sub0"]["mamba"]["A_log"].dtype == torch.float32
+    tokens = serve.prompt_tokens(cfg.vocab_size, 3, 70, 0, "cpu")
+    ops.reset_launch_counts()
+    r = serve.generate(model, params, tokens, 5)
+    assert r["tokens"].shape == (3, 5) and r["decode_steps"] == 4
+    assert bool(r["finite"]) and r["logits"].shape == (3, cfg.vocab_size)
+    assert int(r["tokens"].min()) >= 0
+    assert int(r["tokens"].max()) < cfg.vocab_size
+    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                                   "ssd_scan": 0}
 
 
 def test_init_cache_shapes():
@@ -127,7 +145,7 @@ def test_init_cache_shapes():
     assert cache[0].kv[0].length == 0
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b-smoke", "mamba2-370m-smoke",
+@pytest.mark.parametrize("arch", ["mixtral-8x22b-smoke",
                                   "jamba-1.5-large-398b-smoke",
                                   "whisper-base-smoke", "llava-next-34b-smoke"])
 def test_later_families_raise(arch):
