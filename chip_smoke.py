@@ -10,21 +10,32 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
 1. device    -- the card's name and power limit (nvidia-smi), torch versions;
 2. build     -- nvcc for each CUDA source (all started together), Triton
                 JIT, build seconds, ptxas register and spill lines;
-3. kernels   -- each kernel against its plain PyTorch version on the card at
-                the serving shapes, with the stated tolerance; kernel, plain
-                and library times (CUDA events) beside the card's bound;
+3. kernels   -- each of the seven kernels (four forward, three backward)
+                against its plain PyTorch version on the card at the
+                serving and training shapes, with the stated tolerance;
+                kernel, plain and library times (CUDA events) beside the
+                card's bound;
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
                 tokens, logits within 1e-3 (dense qwen2, Mamba-2 with the
                 real SSD head sizes at a ragged prompt, the jamba hybrid
-                without experts);
+                without experts); two float32 qwen2 smoke models trained
+                three steps on the card and on the CPU from the same
+                parameters (gradients, losses, launch counts); the train
+                loop on the card, resumed from its checkpoint;
 5. serve     -- through ``repro_torch.launch.serve``: qwen2-7b at full width
                 (28 layers, bf16, batch 4, prompt 512, 32 tokens), then
                 mamba2-370m at full width and depth (48 layers, bf16, batch
-                4, prompt 2048, 32 tokens), each with the kernels' launch
-                counts zeroed just before its run and read just after;
-6. the ``{"kernels": [...]}`` summary line, then the ``{"ok": true, ...}``
-   line.
+                4, prompt 2048, 32 tokens);
+6. train     -- through ``repro_torch.launch.train.setup``: qwen2-7b at
+                full width cut to 8 of its 28 layers (bf16, AdamW), batch 2
+                x 4096 tokens, one warm-up step and three timed steps, then
+                one traced step for the device's idle share;
+7. the ``{"train": ...}`` and ``{"kernels": [...]}`` summary lines, then the
+   ``{"ok": true, ...}`` line.
+
+Each run of a main path (phases 5 and 6) zeroes the kernels' launch counts
+just before it and reads them just after.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Weights are random, drawn on the card from a fixed seed.
@@ -32,9 +43,12 @@ line.  Weights are random, drawn on the card from a fixed seed.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,6 +81,27 @@ SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
 SSD_STATE_TOL = 1e-3
 SSD_LAUNCHES_PER_CALL = 1
 REF_LOGIT_TOL = 1e-3  # float32 model, card vs CPU, a few layers
+# Backward kernels against autograd through the plain version in float32 on
+# the same values, as rtol and times the largest |gradient| as atol: bf16
+# 2e-2 (one bf16 rounding of each gradient, and the forward's bf16 output in
+# D = rowsum(dO*O)); float32 1e-4 (sums over keys, query rows or rows in
+# another order).
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+CE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}   # per-row NLL, fp32 out
+# The forward's fp32 lse against the plain fp32 logsumexp of the same scores
+# (from the same bf16 or fp32 inputs), as rtol and atol: sums over the keys
+# in another order.
+LSE_TOL = 2e-5
+# Train path, float32 smoke models, card vs CPU: losses within 1e-4;
+# gradients within 1e-4 relative and 1e-4 of the leaf's largest entry.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4
+REF_TRAIN_STEPS = 3
+# The full-width train run: qwen2-7b cut to 8 of 28 layers (the state of 28
+# layers, 7.6 B parameters at 12 bytes each, exceeds the card's 80 GB),
+# batch 2 x 4096 (the repo's train_4k sequence; its global batch of 256 cut
+# to 2), a warm-up step and three timed steps.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 3
 # Copies of a timed kernel's inputs: four prefill-sized sets exceed the L2.
 COPIES = {"prefill": 4, "decode": 1}
 
@@ -130,7 +165,7 @@ def phase_device() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    print("[1/6] device")
+    print("[1/7] device")
     print(smi)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
@@ -140,9 +175,11 @@ def phase_device() -> str:
 
 
 def phase_build() -> float:
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_ce as ce
+    from repro_torch.kernels import rmsnorm as rn
 
-    print("[2/6] build")
+    print("[2/7] build")
     t0 = time.perf_counter()
     logs = build.build()
     t_nvcc = time.perf_counter() - t0
@@ -150,8 +187,14 @@ def phase_build() -> float:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # Triton JIT of the four Triton kernels at the model's widths.
     x = torch.ones(1, 3584, device="cuda", dtype=torch.bfloat16)
-    ops.rmsnorm(x, x[0], 1e-6)       # Triton JIT at the model width
+    rn.rmsnorm(x, x[0], 1e-6)
+    rn.rmsnorm_bwd(x, x[0], x, 1e-6)
+    logits = torch.ones(1, 152064, device="cuda", dtype=torch.bfloat16)
+    labels = torch.zeros(1, dtype=torch.int64, device="cuda")
+    _, lse = ce.fused_cross_entropy(logits, labels)
+    ce.fused_cross_entropy_bwd(logits, labels, lse, lse)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     print(f"  build_s={total:.2f} (nvcc {t_nvcc:.2f}, triton "
@@ -170,11 +213,14 @@ def _rmsnorm_entry(cfg) -> dict:
     entry = {"name": "rmsnorm", "route": "triton",
              "source": "src/repro_torch/kernels/rmsnorm.py",
              "replaces": "src/repro/kernels/rmsnorm.py:25"}
-    for rows, key in (((BATCH, PROMPT), "prefill"), ((BATCH, 1), "decode")):
+    for rows, key in (((BATCH, PROMPT), "prefill"), ((BATCH, 1), "decode"),
+                      ((TRAIN_BATCH, TRAIN_SEQ), "train")):
         x = torch.randn(*rows, D, generator=g, device="cuda").bfloat16()
         err = check(f"rmsnorm {key} {list(x.shape)} bf16",
                     ops.rmsnorm(x, scale, eps), ref.rmsnorm_ref(x, scale, eps),
                     RMSNORM_TOL)
+        if key == "train":   # compared only; its time is in the train trace
+            continue
         n = x.numel()
         b_ms, b_by = bound(2 * n * x.element_size() + D * 2, 4 * n, FP32_FLOPS)
         args = [(x, scale, eps)] + [(torch.randn_like(x), scale, eps)
@@ -350,24 +396,281 @@ def _ssd_entry() -> dict:
     return entry
 
 
+def _grads(fn, inputs: tuple, dout: torch.Tensor, dtype=None) -> tuple:
+    """Autograd of ``fn(*inputs)`` against ``dout``, the inputs first cast
+    to ``dtype`` (their own where None): the plain version of a backward."""
+    xs = tuple((x.detach() if dtype is None else x.detach().to(dtype))
+               .requires_grad_(True) for x in inputs)
+    return torch.autograd.grad(fn(*xs), xs, dout.to(xs[0].dtype))
+
+
+def _backward_timer(fn, inputs: tuple, dout: torch.Tensor):
+    """A function that runs the backward of one recorded ``fn(*inputs)``
+    graph (kept between calls), for timing a plain or library backward."""
+    xs = tuple(x.detach().requires_grad_(True) for x in inputs)
+    out = fn(*xs)
+    return lambda: torch.autograd.grad(out, xs, dout, retain_graph=True)
+
+
+def _check_grads(label: str, got: tuple, want: tuple, tol: float,
+                 names: str) -> float:
+    """Each gradient within rtol ``tol`` and ``tol`` times its largest
+    entry; returns the largest error."""
+    return max(check(f"{label} d{n}", g, w, tol,
+                     atol=tol * w.abs().max().item())
+               for n, g, w in zip(names, got, want))
+
+
+def _flash_bwd_entry(cfg) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:86",
+             "note": "backward of flash_attention; the TPU kernel is "
+                     "forward-only, so this kernel has no TPU counterpart"}
+
+    def plain(q, k, v, window):
+        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal=True,
+                                       window=window).transpose(1, 2)
+
+    def plain_lse(q, k, v, window):
+        """[B, H, S] fp32 logsumexp of the plain version's scaled, masked
+        fp32 scores."""
+        S, h, d = q.shape[1], q.shape[2], q.shape[3]
+        kx = k.float().repeat_interleave(h // k.shape[2], dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) / math.sqrt(d)
+        qi = torch.arange(S, device=q.device)[:, None]
+        kj = torch.arange(S, device=q.device)[None, :]
+        mask = (kj <= qi) & ((kj > qi - window) if window else True)
+        return torch.logsumexp(s.masked_fill_(~mask, -math.inf), dim=-1)
+
+    # (B, S, H, KV, hd, window, dtype): the train shape, a ragged window, MQA,
+    # float32 with GQA and with a window.
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cases = [(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, 0, torch.bfloat16),
+             (2, 200, H, KV, hd, 32, torch.bfloat16),
+             (2, 200, H, 1, hd, 0, torch.bfloat16),
+             (2, 200, H, KV, hd, 0, torch.float32),
+             (1, 130, 8, 1, 64, 32, torch.float32)]
+    for B, S, h, kv, d, window, dtype in cases:
+        q, k, v, dout = (torch.randn(B, S, n, d, generator=g, device="cuda")
+                         .to(dtype) for n in (h, kv, kv, h))
+        label = (f"flash_attention_bwd B{B} S{S} H{h} KV{kv} hd{d} "
+                 f"{str(dtype).split('.')[-1]} causal window={window}")
+        out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+        if not torch.equal(out, fa.flash_attention(q, k, v, window=window)):
+            fail(f"{label}: the forward with lse differs from without it")
+        check(f"{label} forward out", out, plain(q, k, v, window),
+              FLASH_TOL[dtype])
+        check(f"{label} forward lse", lse, plain_lse(q, k, v, window), LSE_TOL)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+        want = _grads(lambda q, k, v: plain(q, k, v, window), (q, k, v), dout,
+                      torch.float32)
+        err = _check_grads(label, got, want, BWD_TOL[dtype], "qkv")
+        del want
+        if (B, S, dtype) != (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16):
+            continue
+        # q, k, v, o, dO and lse read once; dq, dk, dv written once; five
+        # products of the forward's size (scores, dP, dV, dK, dQ).
+        n_bytes = (sum(t.numel() * t.element_size()
+                       for t in (q, k, v, out, dout, q, k, v))
+                   + lse.numel() * 4)
+        flops = 10 * B * h * d * _flash_pairs(S, S, True, window)
+        b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+        args = [(q, k, v, out, lse, dout)]
+        entry.update(
+            max_abs_err=err,
+            ms=time_ms(lambda *a: fa.flash_attention_bwd(*a, window=window),
+                       args, iters=5, warmup=1),
+            plain_ms=time_ms(_backward_timer(
+                lambda q, k, v: plain(q, k, v, window), (q, k, v), dout),
+                [()], iters=5, warmup=1),
+            library_ms=time_ms(_backward_timer(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True).transpose(1, 2),
+                (q, k, v), dout), [()], iters=5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, shape=list(q.shape))
+        entry["fwd_train_ms"] = time_ms(
+            lambda q, k, v: fa.flash_attention(q, k, v, return_lse=True),
+            [(q, k, v)], iters=5, warmup=1)
+        print(f"  time {label}: kernel {entry['ms']:.3f} ms, plain "
+              f"{entry['plain_ms']:.3f} ms, library {entry['library_ms']:.3f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
+              f"{n_bytes / 1e6:.1f} MB); forward with lse at this shape "
+              f"{entry['fwd_train_ms']:.3f} ms")
+    return entry
+
+
+def _rmsnorm_bwd_entry(cfg) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    D, eps = cfg.d_model, cfg.norm_eps
+    entry = {"name": "rmsnorm_bwd", "route": "triton",
+             "source": "src/repro_torch/kernels/rmsnorm.py",
+             "replaces": "src/repro/kernels/rmsnorm.py:25",
+             "note": "backward of rmsnorm; the TPU kernel is forward-only, so "
+                     "this kernel has no TPU counterpart"}
+    cases = [((TRAIN_BATCH, TRAIN_SEQ, D), torch.bfloat16),
+             ((3, 100, D), torch.float32), ((7, 256), torch.float32)]
+    for shape, dtype in cases:
+        x, dy = (torch.randn(*shape, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+        scale = (1 + 0.1 * torch.randn(shape[-1], generator=g,
+                                       device="cuda")).to(dtype)
+        label = f"rmsnorm_bwd {list(shape)} {str(dtype).split('.')[-1]}"
+        got = rn.rmsnorm_bwd(x, scale, dy, eps)
+        want = _grads(lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy,
+                      torch.float32)
+        err = _check_grads(label, got, want, BWD_TOL[dtype], ("x", "scale"))
+        if shape[:2] != (TRAIN_BATCH, TRAIN_SEQ):
+            continue
+        # x and dy read, dx written (scale and dscale are 7 KB).
+        n = x.numel()
+        n_bytes = 3 * n * x.element_size() + 2 * shape[-1] * 2
+        b_ms, b_by = bound(n_bytes, 10 * n, FP32_FLOPS)
+        entry.update(
+            max_abs_err=err,
+            ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()]),
+            call_ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()],
+                            device_only=False),
+            plain_ms=time_ms(_backward_timer(
+                lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy),
+                [()]),
+            library_ms=time_ms(_backward_timer(
+                lambda x, s: F.rms_norm(x, (shape[-1],), s, eps), (x, scale),
+                dy), [()]),
+            bound_ms=b_ms, bound_by=b_by, shape=list(shape))
+        print(f"  time {label}: kernel {entry['ms']:.4f} ms (per call from "
+              f"the host {entry['call_ms']:.4f} ms), plain "
+              f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+    return entry
+
+
+def _ce_entries(cfg) -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_ce as ce
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    fwd = {"name": "fused_cross_entropy", "route": "triton",
+           "source": "src/repro_torch/kernels/fused_ce.py",
+           "replaces": "src/repro/kernels/fused_ce.py:60"}
+    bwd = {"name": "fused_cross_entropy_bwd", "route": "triton",
+           "source": "src/repro_torch/kernels/fused_ce.py",
+           "replaces": "src/repro/kernels/fused_ce.py:60",
+           "note": "backward of fused_cross_entropy; the TPU kernel is "
+                   "forward-only, so this kernel has no TPU counterpart"}
+    T_TRAIN, V = TRAIN_BATCH * TRAIN_SEQ, cfg.vocab_size
+    # The train shape, the vocabulary 1000 of tests/test_kernels.py (not a
+    # power of two, ragged last block), float32; negative labels in each.
+    cases = [(T_TRAIN, V, torch.bfloat16), (300, 1000, torch.bfloat16),
+             (300, 1000, torch.float32), (64, V, torch.float32)]
+    for T, V_, dtype in cases:
+        logits = (2 * torch.randn(T, V_, generator=g, device="cuda")).to(dtype)
+        labels = torch.randint(0, V_, (T,), generator=g, device="cuda")
+        labels[::7] = -1
+        gr = torch.rand(T, generator=g, device="cuda")
+        label = f"fused_cross_entropy [{T}, {V_}] {str(dtype).split('.')[-1]}"
+        nll, lse = ce.fused_cross_entropy(logits, labels)
+        err_f = check(label, nll, ref.cross_entropy_ref(logits, labels),
+                      CE_TOL[dtype])
+        dx = ce.fused_cross_entropy_bwd(logits, labels, lse, gr)
+        (want,) = _grads(lambda x: ref.cross_entropy_ref(x, labels),
+                         (logits,), gr, torch.float32)
+        err_b = _check_grads(label + " bwd", (dx,), (want,), BWD_TOL[dtype],
+                             ("logits",))
+        del want
+        if (T, V_) != (T_TRAIN, V):
+            continue
+        n = T * V_
+        lab0 = labels.clamp(min=0)    # F.cross_entropy has no label -1
+        fb_bytes = n * logits.element_size() + T * (8 + 4 + 4)
+        fb_ms, fb_by = bound(fb_bytes, 4 * n, FP32_FLOPS)
+        fwd.update(
+            max_abs_err=err_f,
+            ms=time_ms(ce.fused_cross_entropy, [(logits, labels)], iters=10),
+            plain_ms=time_ms(ref.cross_entropy_ref, [(logits, labels)],
+                             iters=10),
+            library_ms=time_ms(lambda x, y: F.cross_entropy(
+                x.float(), y, reduction="none"), [(logits, lab0)], iters=10),
+            bound_ms=fb_ms, bound_by=fb_by, shape=[T, V_])
+        b_bytes = 2 * n * logits.element_size() + T * (8 + 4 + 4)
+        bb_ms, bb_by = bound(b_bytes, 4 * n, FP32_FLOPS)
+        bwd.update(
+            max_abs_err=err_b,
+            ms=time_ms(lambda: ce.fused_cross_entropy_bwd(logits, labels, lse,
+                                                          gr), [()], iters=10),
+            plain_ms=time_ms(_backward_timer(
+                lambda x: ref.cross_entropy_ref(x, labels), (logits,), gr),
+                [()], iters=10),
+            library_ms=time_ms(_backward_timer(
+                lambda x: F.cross_entropy(x.float(), lab0, reduction="none"),
+                (logits,), gr), [()], iters=10),
+            bound_ms=bb_ms, bound_by=bb_by, shape=[T, V_])
+        for e, by in ((fwd, fb_bytes), (bwd, b_bytes)):
+            print(f"  time {e['name']} [{T}, {V_}]: kernel {e['ms']:.4f} ms, "
+                  f"plain {e['plain_ms']:.4f} ms, library "
+                  f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                  f"({e['bound_by']}, {by / 1e9:.3f} GB)")
+    return [fwd, bwd]
+
+
 def phase_kernels(cfg) -> list[dict]:
-    print("[3/6] kernels against their plain versions")
-    return [_flash_entry(cfg), _rmsnorm_entry(cfg), _ssd_entry()]
+    print("[3/7] kernels against their plain versions")
+    entries = [_flash_entry(cfg), _flash_bwd_entry(cfg), _rmsnorm_entry(cfg),
+               _rmsnorm_bwd_entry(cfg), _ssd_entry(), *_ce_entries(cfg)]
+    torch.cuda.empty_cache()
+    return entries
 
 
 def _expected_launches(cfg, steps: int) -> dict[str, int]:
     """Launches of one prefill and ``steps`` decode steps: flash attention
     and the SSD scan on prefill only, RMSNorm on every pass (each layer's
-    mixer norm, FFN norm and Mamba gated norm, and the final norm)."""
+    mixer norm, FFN norm and Mamba gated norm, and the final norm); no
+    backward or cross-entropy kernel."""
+    from repro_torch.kernels import ops
     from repro_torch.models.transformer import n_units, unit_layout
 
     layout, U = unit_layout(cfg), n_units(cfg)
     n_attn = U * sum(s["mixer"] == "attn" for s in layout)
     n_mamba = U * sum(s["mixer"] == "mamba" for s in layout)
     n_ffn = U * sum(bool(s["ffn"]) for s in layout)
-    return {"flash_attention": n_attn,
+    return {**dict.fromkeys(ops.KERNELS, 0),
+            "flash_attention": n_attn,
             "rmsnorm": (cfg.n_layers + n_ffn + n_mamba + 1) * (1 + steps),
             "ssd_scan": n_mamba * SSD_LAUNCHES_PER_CALL}
+
+
+def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
+    """Launches of ``steps`` train steps of a dense model under per-unit
+    activation checkpointing: each layer's flash attention and norms run
+    twice forward (the pass and the backward's recompute) and once
+    backward, the final norm and the cross-entropy once each way."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import n_units, unit_layout
+
+    layout, U = unit_layout(cfg), n_units(cfg)
+    n_attn = U * sum(s["mixer"] == "attn" for s in layout)
+    n_norms = cfg.n_layers + U * sum(bool(s["ffn"]) for s in layout)
+    per_step = {**dict.fromkeys(ops.KERNELS, 0),
+                "flash_attention": 2 * n_attn,
+                "flash_attention_bwd": n_attn,
+                "rmsnorm": 2 * n_norms + 1, "rmsnorm_bwd": n_norms + 1,
+                "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
+    return {k: v * steps for k, v in per_step.items()}
 
 
 REFERENCE_MODELS = (  # (arch, smoke overrides, prompt)
@@ -378,19 +681,123 @@ REFERENCE_MODELS = (  # (arch, smoke overrides, prompt)
      100),
     ("jamba-1.5-large-398b", {"n_experts": 0}, 70),
 )
+TRAIN_REFERENCE_MODELS = REFERENCE_MODELS[:2]   # the dense ones
+
+
+def _to(device):
+    return lambda x: x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def _loss_grads(model, params, batch: dict, device) -> tuple:
+    from repro_torch.tree import leaves
+
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss, _ = model.loss(params, {k: torch.from_numpy(v).to(device)
+                                  for k, v in batch.items()})
+    return torch.autograd.grad(loss, leaves(params))
+
+
+def _reference_train() -> None:
+    """Two float32 qwen2 smoke models: one batch's gradients and three train
+    steps on the card (kernels) against the CPU (plain versions), from the
+    same parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_map
+
+    for arch, overrides, S in TRAIN_REFERENCE_MODELS:
+        cfg = get_config(arch).smoke(**overrides)
+        label = f"reference train {cfg.name} {overrides} 2x{S}"
+        t_cpu, t_gpu = (train.setup(cfg, steps=REF_TRAIN_STEPS, batch=2,
+                                    seq=S, seed=SEED, device=d)
+                        for d in ("cpu", "cuda"))
+        s_cpu = t_cpu.init()
+        s_gpu = tree_map(_to("cuda"), s_cpu)
+
+        batch = t_cpu.pipeline.batch_at(0)
+        batch["labels"][0, :5] = -1                  # ignored positions
+        g_cpu = _loss_grads(t_cpu.model, s_cpu.params, batch, "cpu")
+        ops.reset_launch_counts()
+        g_gpu = _loss_grads(t_gpu.model, s_gpu.params, batch, "cuda")
+        counts, want = ops.launch_counts(), _expected_train_launches(cfg, 1)
+        if counts != want:
+            fail(f"{label}: launches of one backward {counts}, expected {want}")
+        worst, bad = 0.0, 0
+        for gg, gc in zip(g_gpu, g_cpu):
+            gg, scale = gg.cpu(), gc.abs().max().item()
+            worst = max(worst, (gg - gc).abs().max().item() / max(scale, 1e-30))
+            bad += not torch.allclose(gg, gc, rtol=TRAIN_GRAD_TOL,
+                                      atol=TRAIN_GRAD_TOL * scale)
+        print(f"  check {label} gradients: {len(g_cpu)} leaves, largest error "
+              f"{worst:.2e} of the leaf's largest entry, rtol "
+              f"{TRAIN_GRAD_TOL:g} {'ok' if not bad else 'MISMATCH'}")
+        if bad:
+            fail(f"{label}: {bad} gradient leaves disagree with the CPU")
+
+        ops.reset_launch_counts()
+        for step in range(REF_TRAIN_STEPS):
+            b = t_cpu.pipeline.batch_at(step)
+            s_cpu, m_cpu = t_cpu.train_step(s_cpu, b)
+            s_gpu, m_gpu = t_gpu.train_step(s_gpu, b)
+            lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
+            ok = abs(lc - lg) <= TRAIN_LOSS_TOL
+            print(f"  check {label} step {step}: loss card {lg:.6f} cpu "
+                  f"{lc:.6f} |diff| {abs(lc - lg):.2e} "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"{label}: losses differ at step {step}")
+        counts = ops.launch_counts()
+        want = _expected_train_launches(cfg, REF_TRAIN_STEPS)
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+
+
+def _reference_loop() -> None:
+    """The train loop on the card at smoke size: three steps, a checkpoint,
+    and a resumed run to six, against six uninterrupted steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.train import loop
+
+    arch, overrides, S = TRAIN_REFERENCE_MODELS[0]
+    cfg = get_config(arch).smoke(**overrides)
+    t = train.setup(cfg, steps=6, batch=2, seq=S, seed=SEED, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        def run(total: int, sub: str):
+            return loop.run(t.train_step, t.init, t.pipeline.batch_at,
+                            loop.LoopConfig(total_steps=total, ckpt_every=3,
+                                            ckpt_dir=f"{d}/{sub}"))
+        whole = run(6, "whole")
+        first = run(3, "resumed")
+        second = run(6, "resumed")
+    if (first.final_step, second.resumed_from, second.steps_run) != (3, 3, 3):
+        fail(f"loop resume: first run to {first.final_step}, second resumed "
+             f"from {second.resumed_from} and ran {second.steps_run} steps")
+    resumed = first.losses + second.losses
+    diff = max(abs(a - b) for a, b in zip(resumed, whole.losses))
+    ok = len(resumed) == 6 and diff <= 1e-6 * max(whole.losses)
+    print(f"  check loop on the card {cfg.name}: resumed at step 3 from its "
+          f"checkpoint, losses {['%.6f' % x for x in resumed]} against an "
+          f"uninterrupted run's: max |diff| {diff:.2e} (bitwise equal: "
+          f"{resumed == whole.losses}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the resumed loop's losses differ from an uninterrupted run's")
 
 
 def phase_reference() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
+    from repro_torch.tree import tree_map
 
-    print("[4/6] reference: float32 models on the card vs the CPU")
+    print("[4/7] reference: float32 models on the card vs the CPU")
     for arch, overrides, S in REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
         cpu, gpu = get_model(cfg, device="cpu"), get_model(cfg, device="cuda")
         p_cpu = cpu.init(SEED)
-        p_gpu = _tree_map(lambda t: t.cuda(), p_cpu)
+        p_gpu = tree_map(_to("cuda"), p_cpu)
         tokens = torch.randint(0, cfg.vocab_size, (2, S),
                                generator=torch.Generator().manual_seed(SEED))
         max_seq = S + 4
@@ -408,6 +815,8 @@ def phase_reference() -> None:
                 fail(f"{cfg.name}: greedy tokens differ at step {step}")
             lc, cc = cpu.decode(p_cpu, tc, cc)
             lg, cg = gpu.decode(p_gpu, tg, cg)
+    _reference_train()
+    _reference_loop()
 
 
 def phase_serve(arch: str, prompt: int) -> dict:
@@ -415,16 +824,17 @@ def phase_serve(arch: str, prompt: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import get_model
+    from repro_torch.tree import leaves
 
     cfg = get_config(arch)
-    print(f"[5/6] serve {cfg.name}: {cfg.n_layers} layers, d_model "
+    print(f"[5/7] serve {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.dtype}, batch {BATCH}, prompt {prompt}, "
           f"gen {GEN}")
     model = get_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(SEED)
     torch.cuda.synchronize()
-    n_params = sum(_leaves(_tree_map(lambda t: t.numel(), params)))
+    n_params = sum(p.numel() for p in leaves(params))
     print(f"  init {n_params / 1e9:.3f} B parameters on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     tokens = serve.prompt_tokens(cfg.vocab_size, BATCH, prompt, SEED, "cuda")
@@ -463,21 +873,101 @@ def phase_serve(arch: str, prompt: int) -> dict:
     return stats
 
 
-def _tree_map(fn, tree):
-    """``fn`` on every tensor of a parameter tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+def _train_model_flops(cfg, n_params: int, embed: int) -> tuple[float, float]:
+    """Model FLOPs of one train step: 6 per parameter (all but the input
+    embedding, a gather) per token, and three times the forward's causal
+    attention (4 * B * H * hd per visible query-key pair per layer).
+    Returns (total, attention)."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 3 * cfg.n_layers * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * (
+        _flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.sliding_window))
+    return 6 * (n_params - embed) * tokens + attn, attn
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, list):
-        return [leaf for v in tree for leaf in _leaves(v)]
-    return [tree]
+def phase_train() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile_serve, train
+    from repro_torch.tree import leaves, tree_map
+
+    full = get_config("qwen2-7b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[6/7] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, AdamW, {TRAIN_STEPS} timed steps")
+    t = train.setup(cfg, steps=TRAIN_STEPS + 2, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, seed=SEED, device="cuda")
+    t0 = time.perf_counter()
+    state = t.init()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(state.params))
+    print(f"  init {n_params / 1e9:.3f} B parameters and fp32 moments on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+    batches = [t.pipeline.batch_at(i) for i in range(TRAIN_STEPS + 2)]
+    t0 = time.perf_counter()
+    state, m = t.train_step(state, batches[0])       # warm-up: cuBLAS, allocator
+    losses = [float(m["loss"])]
+    print(f"  warm-up step {time.perf_counter() - t0:.2f} s, loss "
+          f"{losses[0]:.4f}")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_s = []
+    for b in batches[1:TRAIN_STEPS + 1]:
+        t0 = time.perf_counter()
+        state, m = t.train_step(state, b)
+        losses.append(float(m["loss"]))              # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    def traced_step():
+        nonlocal state
+        state, m = t.train_step(state, batches[-1])
+        losses.append(float(m["loss"]))
+
+    trace = profile_serve.profile(traced_step)
+    # The optimizer alone (per-leaf fp32 updates in plain torch), on zero
+    # gradients, after the measured steps.
+    grads = tree_map(torch.zeros_like, state.params)
+    adamw_ms = time_ms(lambda: t.optimizer.update(
+        grads, state.opt, state.params, t.model.decays), [()], iters=2,
+        warmup=1)
+    flops, attn_flops = _train_model_flops(cfg, n_params,
+                                           state.params["embed"].numel())
+    ms = 1e3 * sum(step_s) / len(step_s)
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
+             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "params_b": n_params / 1e9,
+             "ms_per_step": ms, "step_ms": [1e3 * x for x in step_s],
+             "tokens_per_s": tokens / (ms / 1e3),
+             "model_tflop_per_step": flops / 1e12,
+             "attention_tflop_per_step": attn_flops / 1e12,
+             "share_of_bf16_peak": flops / (ms / 1e3) / BF16_TENSOR_FLOPS,
+             "peak_mem_gb": peak / 1e9, "losses": losses,
+             "adamw_update_ms": adamw_ms,
+             "traced_step": trace, "launches": counts}
+    print(f"  {ms:.1f} ms/step ({', '.join(f'{x:.1f}' for x in stats['step_ms'])}),"
+          f" {stats['tokens_per_s']:.0f} tokens/s")
+    print(f"  model FLOPs {flops / 1e12:.1f} TFLOP/step (attention "
+          f"{attn_flops / 1e12:.2f}), {100 * stats['share_of_bf16_peak']:.1f}%"
+          f" of the 989 TFLOP/s bf16 peak")
+    print(f"  peak memory {peak / 1e9:.2f} GB; losses "
+          f"{['%.4f' % x for x in losses]}")
+    print(f"  traced step: wall {trace['wall_ms']:.1f} ms, device busy "
+          f"{trace['device_busy_ms']:.1f} ms, idle share "
+          f"{trace['idle_share']:.3f}, {trace['kernels']} kernels; by group "
+          + ", ".join(f"{k} {v:.1f} ms"
+                      for k, v in trace["device_ms_by_group"].items()))
+    print(f"  AdamW update alone (CUDA events): {adamw_ms:.1f} ms")
+    print(f"  launches over the timed steps {counts}")
+    want = _expected_train_launches(cfg, TRAIN_STEPS)
+    if counts != want:
+        fail(f"train launch counts {counts}, the path implies {want}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite train loss {losses}")
+    return stats
 
 
 def main() -> None:
@@ -491,15 +981,19 @@ def main() -> None:
     kernels = phase_kernels(get_config("qwen2-7b"))
     phase_reference()
     serves = {arch: phase_serve(arch, prompt) for arch, prompt in SERVES}
+    torch.cuda.empty_cache()
+    train_stats = phase_train()
+    paths = {**{f"serve {arch}": st["launches"] for arch, st in serves.items()},
+             f"train {train_stats['arch']}": train_stats["launches"]}
     for entry in kernels:
-        by_path = {arch: st["launches"][entry["name"]]
-                   for arch, st in serves.items()}
+        by_path = {path: counts[entry["name"]] for path, counts in paths.items()}
         if not any(by_path.values()):
-            fail(f"{entry['name']} launched on no serve path")
+            fail(f"{entry['name']} launched on no main path")
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    print("[6/6] summary")
+    print("[7/7] summary")
     print(json.dumps({"serve": serves}))
+    print(json.dumps({"train": train_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

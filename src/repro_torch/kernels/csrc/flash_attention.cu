@@ -6,7 +6,10 @@
 // h*KV/H), causal and sliding-window masks, queries right-aligned when
 // Sq < Sk, wholly masked tiles skipped, masked logits -1e30 and the
 // denominator clamped at 1e-30.  Running max, sum and accumulator are fp32;
-// the output takes q's dtype.
+// the output takes q's dtype.  Where the caller passes an lse buffer (the
+// train path), each query row's log-sum-exp m + log(max(l, 1e-30)) is
+// written there in fp32 for the backward (csrc/flash_attention_bwd.cu); a
+// null pointer skips it, so serving does the same work as without it.
 //
 // Design.  One thread block per (64-query tile, query head, batch row).
 // The TPU kernel carried its running max/sum/accumulator across a
@@ -47,6 +50,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] fp32, or null
   int B, H, KV, Sq, Sk;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
@@ -239,6 +243,10 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(Params p) {
   }
   __syncthreads();  // l_s final (also when no tile was live)
 
+  if (p.lse != nullptr && tid < BLOCK_Q && q0 + tid < p.Sq)
+    p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + q0 + tid] =
+        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = ay * RPT + i;
@@ -276,15 +284,17 @@ int launch_hd(const Params& p, int head_dim, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, the
-// (batch, sequence, head) strides of q, k, v and o in that order.  Returns
-// the CUDA error of the launch (0 on success); launches on `stream` and
-// does not synchronise.
+// (batch, sequence, head) strides of q, k, v and o in that order.  lse: a
+// contiguous [B, H, Sq] fp32 buffer for the rows' log-sum-exp, or null.
+// Returns the CUDA error of the launch (0 on success); launches on `stream`
+// and does not synchronise.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
+                                   const void* v, void* o, float* lse,
+                                   int B, int H,
                                    int KV, int Sq, int Sk, int head_dim,
                                    const int64_t* strides, float scale,
                                    int causal, int window, void* stream) {
-  Params p{q, k, v, o, B, H, KV, Sq, Sk,
+  Params p{q, k, v, o, lse, B, H, KV, Sq, Sk,
            strides[0], strides[1], strides[2],
            strides[3], strides[4], strides[5],
            strides[6], strides[7], strides[8],

@@ -1,11 +1,15 @@
-"""Launcher for the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Launchers for the CUDA flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and its backward (``csrc/flash_attention_bwd.cu``).
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-(``flash_attention`` / ``_flash_kernel``).  The kernel reads the model layout
+The forward replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention`` / ``_flash_kernel``).  It reads the model layout
 q [B, Sq, H, hd], k/v [B, Sk, KV, hd] through strides, handles any sequence
-length, and returns [B, Sq, H, hd] in q's dtype.  Its plain version is
-``repro_torch.kernels.ref.flash_attention_ref``; ``ops.flash_attention``
-picks between the two by the device of the tensors.
+length, and returns [B, Sq, H, hd] in q's dtype, plus the rows' fp32
+log-sum-exp when asked.  The backward, which has no TPU counterpart (JAX
+differentiates its jnp attention), takes that log-sum-exp and returns dq,
+dk, dv for self-attention (Sq == Sk).  Their plain version is
+``repro_torch.kernels.ref.flash_attention_ref`` and autograd through it;
+``ops.flash_attention`` picks between the two by the device of the tensors.
 """
 
 from __future__ import annotations
@@ -20,25 +24,33 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128)
 
-#: Kernel launches in this process; ``ops.reset_launch_counts`` zeroes it.
+#: Kernel launches in this process (forward, backward);
+#: ``ops.reset_launch_counts`` zeroes them.  One backward launch runs two
+#: grids, the dQ pass and then the dK/dV pass.
 launches = 0
+bwd_launches = 0
 
-_fn = None
+# C entry point -> (source in csrc/, pointer arguments, int shape arguments):
+# the forward takes q, k, v, o, lse and B, H, KV, Sq, Sk, head_dim; the
+# backward q, k, v, o, dout, lse, delta, dq, dk, dv and B, H, KV, S, head_dim.
+_ENTRY_POINTS = {"flash_attention_fwd": ("flash_attention", 5, 6),
+                 "flash_attention_bwd": ("flash_attention_bwd", 10, 5)}
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+def _kernel(entry: str = "flash_attention_fwd"):
+    """The C entry point ``entry``, its library loaded (built) on first use."""
+    if entry not in _fns:
+        source, n_ptrs, n_ints = _ENTRY_POINTS[entry]
+        fn = getattr(build.load(source), entry)
+        # dtype, pointers, shape, strides, scale, causal, window, stream
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
+                       + [ctypes.c_int] * n_ints
+                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[entry] = fn
+    return _fns[entry]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,26 +86,79 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: window {window} < 0")
 
 
+def _strides(*tensors: torch.Tensor):
+    """The (batch, sequence, head) strides of each tensor, as a C array."""
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """Launch the kernel on the current stream: q [B,Sq,H,hd], k/v
-    [B,Sk,KV,hd] CUDA tensors -> [B,Sq,H,hd].  Raises ``ValueError`` on any
-    input the kernel does not take and ``RuntimeError`` if the launch
-    fails."""
+    [B,Sk,KV,hd] CUDA tensors -> [B,Sq,H,hd], or with ``return_lse`` (out,
+    lse [B,H,Sq] fp32) for the backward.  Raises ``ValueError`` on any input
+    the kernel does not take and ``RuntimeError`` if the launch fails."""
     global launches
     _check(q, k, v, window)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
-                                      for s in t.stride()[:3]))
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), B, H, KV, Sq, Sk, hd, strides,
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                B, H, KV, Sq, Sk, hd, _strides(q, k, v, out),
                 1.0 / math.sqrt(hd), int(causal), int(window), stream)
     if rc:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
+    """Launch the backward on the current stream: the forward's inputs, its
+    output ``out`` and ``lse`` (from ``return_lse``), and the upstream
+    gradient ``dout`` [B,S,H,hd] -> (dq, dk, dv) shaped and typed like q, k,
+    v.  Self-attention only: raises ``ValueError`` unless Sq == Sk."""
+    global bwd_launches
+    _check(q, k, v, window)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape[1] != S:
+        raise ValueError(f"flash_attention_bwd: needs Sq == Sk, got Sq={S} "
+                         f"Sk={k.shape[1]}")
+    for name, t in (("out", out), ("dout", dout)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or t.stride(-1) != 1):
+            raise ValueError(f"flash_attention_bwd: {name} must be like q "
+                             f"{tuple(q.shape)} {q.dtype} with a contiguous "
+                             f"head_dim, got {tuple(t.shape)} {t.dtype} "
+                             f"strides {t.stride()}")
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"[{B}, {H}, {S}] float32 tensor, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    fn = _kernel("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, H, KV, S, hd, _strides(q, k, v, out, dout, dq, dk, dv),
+                1.0 / math.sqrt(hd), int(causal), int(window), stream)
+    if rc:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth).
 
-Port of ``repro.kernels.ref`` for the kernels on the serving slices, plus
-the Mamba-2 model's chunked SSD scan (``repro.models.mamba.ssd_scan``).  The
-ops dispatch (``repro_torch.kernels.ops``) runs these for CPU tensors, and
-``chip_smoke.py`` holds each kernel against them on the card.
+Port of ``repro.kernels.ref``, plus the Mamba-2 model's chunked SSD scan
+(``repro.models.mamba.ssd_scan``).  The ops dispatch
+(``repro_torch.kernels.ops``) runs these for CPU tensors, and
+``chip_smoke.py`` holds each kernel against them on the card.  They are
+written in differentiable torch, so autograd through them is the plain
+version of each backward kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +40,16 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def cross_entropy_ref(logits, labels):
+    """Per-row NLL [T] in fp32 of logits [T, V] (any float dtype) and labels
+    [T]: ``logsumexp(logits) - logits[label]``.  Labels are clamped at 0, so
+    a negative-label row gives ``lse - logits[row, 0]``; callers mask it."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.long().clamp(min=0)[:, None])[:, 0]
+    return lse - ll
 
 
 def ssd_ref(x, dt, A, Bm, Cm, initial_state=None):

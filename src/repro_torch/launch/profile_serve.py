@@ -1,5 +1,6 @@
-"""Where the serving time goes: a ``torch.profiler`` trace of one prefill and
-of a few decode steps on the card.
+"""Where the time goes: a ``torch.profiler`` trace of one prefill and of a
+few decode steps on the card; ``profile`` traces any other call, as
+``chip_smoke.py``'s train phase does for one train step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2-7b \\
         --batch 4 --prompt-len 512 --decode-steps 4
@@ -9,8 +10,8 @@ of a few decode steps on the card.
 For each phase it prints the host-clock wall time (ending in a
 synchronize), the device-busy time (the union of the kernels' intervals in
 the trace), the idle share between them, the number of kernels launched,
-and the device time per kernel group (flash attention, the SSD scan,
-rmsnorm, matrix products, the rest).  The phases run after one untraced warm-up pass.
+and the device time per kernel group (each of the port's kernels, matrix
+products, the rest).  The phases run after one untraced warm-up pass.
 Fails if the trace holds no device events.
 """
 
@@ -22,20 +23,28 @@ import time
 from collections import defaultdict
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity
+from torch.profiler import profile as profile_
 
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import prompt_tokens
 from repro_torch.models import get_model
 
 
+# Kernel-name fragment -> group, first match wins.
+_KERNEL_GROUPS = (("flash_fwd_kernel", "flash_attention"),
+                  ("flash_bwd", "flash_attention_bwd"),
+                  ("ssd_scan_kernel", "ssd_scan"),
+                  ("rmsnorm_fwd", "rmsnorm"),
+                  ("rmsnorm_bwd", "rmsnorm_bwd"),
+                  ("ce_fwd", "fused_cross_entropy"),
+                  ("ce_bwd", "fused_cross_entropy_bwd"))
+
+
 def _group(name: str) -> str:
-    if "flash_fwd_kernel" in name:
-        return "flash_attention"
-    if "ssd_scan_kernel" in name:
-        return "ssd_scan"
-    if "rmsnorm_fwd" in name:
-        return "rmsnorm"
+    for fragment, group in _KERNEL_GROUPS:
+        if fragment in name:
+            return group
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
                                        "nvjet")):
         return "matmul"
@@ -70,6 +79,19 @@ def _summary(prof, wall_s: float) -> dict:
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
 
 
+def profile(fn) -> dict:
+    """Trace one call of ``fn`` (which must leave the card idle when it
+    returns, e.g. by reading a result) and summarise it."""
+    torch.cuda.synchronize()
+    with profile_(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _summary(prof, wall)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b")
@@ -100,18 +122,14 @@ def main() -> None:
     out = {"arch": cfg.name, "batch": args.batch,
            "prompt_len": args.prompt_len, "decode_steps": args.decode_steps,
            "device": torch.cuda.get_device_name(0)}
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for phase in ("prefill", "decode"):
-        torch.cuda.synchronize()
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            if phase == "prefill":
-                token, cache = run_prefill()
-            else:
-                run_decode(token, cache)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        out[phase] = _summary(prof, wall)
+    prefill_out = {}
+
+    def prefill():
+        prefill_out["token"], prefill_out["cache"] = run_prefill()
+
+    out["prefill"] = profile(prefill)
+    out["decode"] = profile(lambda: run_decode(prefill_out["token"],
+                                               prefill_out["cache"]))
     print(json.dumps(out))
 
 

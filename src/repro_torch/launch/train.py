@@ -1,0 +1,99 @@
+"""Training launcher CLI.
+
+Port of ``repro.launch.train`` without ``--compress`` (the int8 gradient
+path belongs to the parallel slice of the port):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch qwen2-7b-smoke --steps 100 --ckpt-dir ckpt
+
+Runs on the card (``--device cuda``, the default) unless asked for the CPU.
+Dense configs train; a config with Mamba or MoE units raises
+``NotImplementedError``.  The loop is the fault-tolerant one: auto-resume,
+SIGTERM checkpointing, straggler detection, async checkpoints.
+:func:`setup` builds the model, optimizer, data and step for any
+``ModelConfig`` (``chip_smoke.py`` passes a depth-cut ``qwen2-7b``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+from collections.abc import Callable
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.models import get_model
+from repro_torch.models.registry import Model
+from repro_torch.optim.adamw import AdamW
+from repro_torch.train import loop as loop_lib
+from repro_torch.train.state import TrainState, init_state
+from repro_torch.train.step import make_train_step
+
+
+class Trainer(NamedTuple):
+    model: Model
+    optimizer: AdamW
+    pipeline: SyntheticTokens
+    train_step: Callable
+    init: Callable[[], TrainState]
+
+
+def setup(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
+          lr: float = 3e-4, microbatches: int = 1, seed: int = 0,
+          device: str | torch.device = "cuda") -> Trainer:
+    """The launcher's model, optimizer (warm-up over the first fifth of
+    ``steps``, at most 20), synthetic data from ``seed`` and train step."""
+    model = get_model(cfg, device=device)
+    opt = AdamW(peak_lr=lr, warmup_steps=min(20, steps // 5 + 1),
+                total_steps=steps)
+    pipe = SyntheticTokens(cfg, batch=batch, seq=seq, seed=seed)
+    step = make_train_step(model, opt, microbatches=microbatches)
+    return Trainer(model, opt, pipe, step,
+                   lambda: init_state(model, opt, seed))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b-smoke",
+                    help=f"one of {ARCH_NAMES} (append -smoke for CPU)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress", action="store_true",
+                    help="int8 + error-feedback gradient path (not ported)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    if args.compress:
+        raise NotImplementedError("--compress (int8 error-feedback gradients) "
+                                  "comes with the parallel slice of the port")
+
+    t = setup(get_config(args.arch), steps=args.steps, batch=args.batch,
+              seq=args.seq, lr=args.lr, microbatches=args.microbatches,
+              seed=args.seed, device=args.device)
+    lcfg = loop_lib.LoopConfig(total_steps=args.steps,
+                               ckpt_every=args.ckpt_every,
+                               ckpt_dir=args.ckpt_dir)
+    report = loop_lib.run(t.train_step, t.init, t.pipeline.batch_at, lcfg)
+    print(f"resumed_from={report.resumed_from} steps_run={report.steps_run} "
+          f"final_step={report.final_step} preempted={report.preempted}")
+    if report.losses:
+        print(f"loss first5={np.mean(report.losses[:5]):.4f} "
+              f"last5={np.mean(report.losses[-5:]):.4f}")
+    if report.straggler_steps:
+        print(f"stragglers: {report.straggler_steps[:10]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder-only serving path in PyTorch."""
+"""Model zoo of the port: dense, SSM and hybrid decoder-only models in
+PyTorch (serving; the train loss for dense models)."""
 
 from repro_torch.models.registry import Model, get_model
 

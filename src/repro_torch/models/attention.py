@@ -1,6 +1,10 @@
 """GQA attention with RoPE, sliding-window masking, and KV caches.
 
-Port of ``repro.models.attention``, serving entry points only:
+Port of ``repro.models.attention``, the dense serving and training entry
+points:
+  * ``attend_train``   — full-sequence causal attention for the train step
+    through ``ops.flash_attention`` (on the card the kernel pair under an
+    ``autograd.Function``, on the CPU autograd through its plain version).
   * ``attend_prefill`` — full-sequence causal attention through
     ``ops.flash_attention`` (the CUDA kernel on the card, its plain version
     on the CPU), also returning the KV cache.
@@ -8,8 +12,8 @@ Port of ``repro.models.attention``, serving entry points only:
     sliding-window layers, linear buffer otherwise), in plain torch on both
     devices, as the JAX package computes it outside any Pallas kernel.
 
-``attend_train``, ``attend_cross`` and ``encode_kv`` come with the slices
-that need them.  Weights keep the JAX layout [in, out] for ``x @ w``.
+``attend_cross`` and ``encode_kv`` come with the encoder-decoder slice.
+Weights keep the JAX layout [in, out] for ``x @ w``.
 """
 
 from __future__ import annotations
@@ -98,15 +102,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
         length=0)
 
 
-def attend_prefill(p, x, cfg: ModelConfig, max_seq: int):
-    """Full-sequence pass that also materializes the decode cache."""
-    B, S, _ = x.shape
+def _rotary_qkv(p, x, cfg: ModelConfig):
+    """Projected q, k, v with RoPE at positions 0 .. S-1."""
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope_theta > 0:
-        pos = torch.arange(S, device=x.device)
+        pos = torch.arange(x.shape[1], device=x.device)
         cos, sin = rotary_cos_sin(pos, cfg.hd, cfg.rope_theta, x.dtype)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
+    return q, k, v
+
+
+def attend_train(p, x, cfg: ModelConfig):
+    """Causal (sliding-window where the config has one) self-attention of
+    x [B, S, D] -> [B, S, D]: the JAX module's ``use_pallas=True`` branch,
+    the same function as its ``_sdpa`` mask branch."""
+    B, S, _ = x.shape
+    q, k, v = _rotary_qkv(p, x, cfg)
+    out = ops.flash_attention(q, k, v, causal=True,
+                              window=cfg.sliding_window)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def attend_prefill(p, x, cfg: ModelConfig, max_seq: int):
+    """Full-sequence pass that also materializes the decode cache."""
+    B, S, _ = x.shape
+    q, k, v = _rotary_qkv(p, x, cfg)
     out = ops.flash_attention(q, k, v, causal=True,
                               window=cfg.sliding_window)
     y = out.reshape(B, S, -1) @ p["wo"]

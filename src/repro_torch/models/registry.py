@@ -1,16 +1,19 @@
-"""Uniform model API, serving functions of the dense, SSM and hybrid families.
+"""Uniform model API: serving for the dense, SSM and hybrid families, the
+train loss for the dense family.
 
 Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
-``Model`` whose functions cover the serving path:
+``Model`` with:
 
   init(seed)                       -> params, drawn on the device
+  loss(params, batch)              -> (loss, {'ce', 'aux'}), differentiable
   prefill(params, batch, max_seq)  -> (logits, cache)
   decode(params, token, cache)     -> (logits, cache)
   init_cache(batch, max_seq)       -> cache
 
-``loss`` raises until the training slice of the port.  A config with MoE
-layers (the ``moe`` family, a hybrid with experts), and the ``encdec`` and
-``vlm`` families, raise when the model is asked for.
+``loss`` raises ``NotImplementedError`` for a config with Mamba units (the
+SSD backward kernel is a later slice).  A config with MoE layers (the
+``moe`` family, a hybrid with experts), and the ``encdec`` and ``vlm``
+families, raise when the model is asked for.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ class Model:
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
+    decays: Callable[[tuple, torch.Tensor], bool]   # AdamW's decay rule
 
 
 def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
@@ -53,8 +57,7 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
         return transformer.init_lm(generator, cfg, device)
 
     def loss(params, batch):
-        raise NotImplementedError("the loss comes with the training slice "
-                                  "of the port")
+        return transformer.loss_fn(params, batch, cfg)
 
     def prefill_fn(params, batch, max_seq):
         return transformer.prefill(params, batch["tokens"], cfg, max_seq)
@@ -65,4 +68,5 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
     def init_cache(batch: int, max_seq: int):
         return transformer.init_decode_cache(cfg, batch, max_seq, device)
 
-    return Model(cfg, init, loss, prefill_fn, decode_fn, init_cache)
+    return Model(cfg, init, loss, prefill_fn, decode_fn, init_cache,
+                 transformer.decayed)

@@ -1,4 +1,5 @@
-"""Decoder-only LM backbone, serving path: dense, SSM and hybrid units.
+"""Decoder-only LM backbone: serving for dense, SSM and hybrid units, the
+train loss for dense units.
 
 Port of ``repro.models.transformer`` for units of attention or Mamba-2
 mixers with an optional dense FFN (the dense family, mamba2, and the
@@ -6,12 +7,15 @@ hybrid's layout without MoE).  Layers are grouped into the same repeating
 *units* as in the JAX module (``unit_layout``), but parameters are a list
 with one dict per unit in place of arrays stacked over units, and the
 ``lax.scan`` over units becomes a loop.  Every RMSNorm goes through
-``ops.rmsnorm`` (the Triton kernel on the card), every prefill attention
-through ``ops.flash_attention`` and every prefill SSD scan through
-``ops.ssd_scan`` (the CUDA kernels on the card).
+``ops.rmsnorm`` (the Triton kernel on the card), every prefill or train
+attention through ``ops.flash_attention``, every prefill SSD scan through
+``ops.ssd_scan`` (the CUDA kernels on the card) and the train loss through
+``ops.fused_cross_entropy`` (Triton); on the card the train path's
+gradients come from their backward kernels.
 
 MoE units raise ``NotImplementedError``: they come with the MoE slice of
-the port.
+the port.  So does training a config with Mamba units (``loss_fn``): it
+needs a backward of the SSD kernel, a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -26,6 +31,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models.common import cdtype, dense_init, embed_init
 from repro_torch.models.mlp import init_mlp, mlp
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def unit_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
@@ -99,6 +106,15 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
     return params
 
 
+def decayed(path: tuple, p: torch.Tensor) -> bool:
+    """Whether AdamW decays the leaf at ``path``: JAX decays leaves of rank
+    >= 2, and its tree stacks each unit's leaves over units ([U, ...]), so a
+    unit leaf counts one axis more than here.  A unit's norm scales and QKV
+    biases are decayed, the top-level ``final_norm`` is not; the port
+    reproduces this quirk of the reference."""
+    return p.ndim + (path[:1] == ("units",)) >= 2
+
+
 def embed_tokens(params, tokens, cfg: ModelConfig):
     return params["embed"][tokens]
 
@@ -106,6 +122,69 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
 def lm_head(params, h, cfg: ModelConfig):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w
+
+
+# ----------------------------------------------------------------- training
+
+def _dense_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
+    """``ported_layout`` of a config the train path takes: attention units."""
+    layout = ported_layout(cfg)
+    if any(sub["mixer"] != "attn" for sub in layout):
+        raise NotImplementedError(
+            f"{cfg.name}: training Mamba units needs a backward of the SSD "
+            f"kernel, which comes with a later slice of the port")
+    return layout
+
+
+def _apply_unit_train(h, up, cfg: ModelConfig):
+    for j, sub in enumerate(_dense_layout(cfg)):
+        sp = up[f"sub{j}"]
+        x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
+        h = h + attn.attend_train(sp["attn"], x, cfg)
+        if sub["ffn"]:
+            x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
+            h = h + mlp(sp["mlp"], x, cfg)
+    return h
+
+
+def forward_train(params, tokens, cfg: ModelConfig):
+    """tokens [B, S] -> (logits [B, S, V], aux loss).
+
+    Activation checkpointing as in the JAX module (``jax.checkpoint`` on
+    the unit body): only unit boundaries are kept, and the backward pass
+    recomputes each unit (``torch.utils.checkpoint``, non-reentrant), so
+    each unit's kernels run twice forward and once backward.  Dense units
+    have no auxiliary loss; it is 0, as in JAX.
+    """
+    _dense_layout(cfg)
+    h = embed_tokens(params, tokens, cfg)
+    for up in params["units"]:
+        h = checkpoint(_apply_unit_train, h, up, cfg, use_reentrant=False)
+    h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return lm_head(params, h, cfg), aux
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Token-mean CE in fp32; labels < 0 are ignored.  The per-row NLL goes
+    through ``ops.fused_cross_entropy`` on [B*S, V]; the masked mean, which
+    gives ignored rows a zero gradient, is plain torch over [B*S]."""
+    V = logits.shape[-1]
+    nll = ops.fused_cross_entropy(logits.reshape(-1, V),
+                                  labels.reshape(-1)).reshape(labels.shape)
+    valid = (labels >= 0) if mask is None else mask & (labels >= 0)
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """batch: {'tokens': [B, S], 'labels': [B, S]} -> (loss, {'ce', 'aux'})."""
+    if batch.get("prefix") is not None:
+        raise NotImplementedError("prefix embeddings come with the VLM slice "
+                                  "of the port")
+    logits, aux = forward_train(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 # ----------------------------------------------------------------- serving

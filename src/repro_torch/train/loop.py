@@ -1,0 +1,102 @@
+"""Fault-tolerant training loop.
+
+Port of ``repro.train.loop`` (its elastic reshard belongs to the parallel
+slice):
+  * auto-resume from the latest committed checkpoint (crash / preemption),
+  * SIGTERM/SIGINT -> checkpoint-then-exit (preemption notice handling),
+  * periodic async checkpoints (I/O overlapped with training),
+  * straggler detection: per-step wall-time EWMA; a step slower than
+    ``straggler_factor`` times the EWMA is flagged in the report.
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from collections.abc import Callable
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
+
+from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.train.state import TrainState
+
+
+@dataclass
+class LoopConfig:
+    total_steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: str = "checkpoints"
+    log_every: int = 10
+    keep: int = 3
+    ewma_alpha: float = 0.1
+    straggler_factor: float = 2.5   # step > factor * ewma -> flagged
+
+
+@dataclass
+class LoopReport:
+    steps_run: int = 0
+    resumed_from: int | None = None
+    final_step: int = 0
+    losses: list[float] = field(default_factory=list)
+    straggler_steps: list[int] = field(default_factory=list)
+    preempted: bool = False
+
+
+def run(train_step: Callable, init_state: Callable[[], TrainState],
+        batch_at: Callable[[int], Any], cfg: LoopConfig,
+        install_signals: bool = True) -> LoopReport:
+    """Run (or resume) training to cfg.total_steps."""
+    report = LoopReport()
+    ckpt_dir = Path(cfg.ckpt_dir)
+    saver = ckpt_lib.AsyncCheckpointer(ckpt_dir, keep=cfg.keep)
+
+    state = init_state()
+    latest = ckpt_lib.latest_step(ckpt_dir)
+    if latest is not None:
+        state, _ = ckpt_lib.restore(ckpt_dir, state, step=latest)
+        report.resumed_from = latest
+
+    stop = {"now": False}
+
+    def _handler(signum, frame):  # preemption notice
+        stop["now"] = True
+
+    if install_signals:
+        prev_term = signal.signal(signal.SIGTERM, _handler)
+        prev_int = signal.signal(signal.SIGINT, _handler)
+
+    ewma = None
+    try:
+        step = int(state.step)
+        while step < cfg.total_steps:
+            t0 = time.time()
+            state, metrics = train_step(state, batch_at(step))
+            loss = float(metrics["loss"])   # waits for the step
+            dt = time.time() - t0
+
+            # Straggler detection (EWMA of step wall time).
+            if ewma is None:
+                ewma = dt
+            elif dt > cfg.straggler_factor * ewma:
+                report.straggler_steps.append(step)
+            ewma = (1 - cfg.ewma_alpha) * ewma + cfg.ewma_alpha * dt
+
+            step += 1
+            report.steps_run += 1
+            report.losses.append(loss)
+
+            if step % cfg.ckpt_every == 0 or step == cfg.total_steps:
+                saver.save(step, state)
+            if stop["now"]:
+                saver.wait()
+                ckpt_lib.save(ckpt_dir, step, state)   # sync final save
+                report.preempted = True
+                break
+        report.final_step = step
+    finally:
+        saver.wait()
+        if install_signals:
+            signal.signal(signal.SIGTERM, prev_term)
+            signal.signal(signal.SIGINT, prev_int)
+    return report

@@ -11,7 +11,9 @@ bfloat16 3e-2 (one rounding of the output; both sides compute in fp32);
 y in float32, and the fp32 state, 2e-4 relative and 2e-4 of the largest
 entry: exp of differences of a chunk's cumulative sum of dt*A, summed in
 another order, errs by ~|cumsum| * 2^-24, and over a 256-row chunk that
-reaches ~1e-4 of the largest term where the terms cancel.
+reaches ~1e-4 of the largest term where the terms cancel.  The train
+path's kernels (the fused cross-entropy and the three backward kernels)
+state their tolerances below.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import fused_ce as tce
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import ssd_scan as tssd
@@ -36,7 +39,7 @@ def _torch(x: np.ndarray, dtype: str, device):
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.float().cpu().numpy()
+    return x.detach().float().cpu().numpy()
 
 
 @pytest.fixture
@@ -195,3 +198,172 @@ def test_cuda_ssd_scan_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="chunk"):
         tssd.ssd_scan(x, dt, A, Bm, Cm, chunk=0)
     assert tssd.launches == before
+
+
+# ------------------------------------------------------- the train path's
+# kernels: the fused cross-entropy and the three backward kernels.  Each is
+# held against autograd through its plain version in float32 on the same
+# values.  Backward tolerances, as rtol and times the gradient's largest
+# entry as atol: bfloat16 2e-2 (one bf16 rounding of each gradient, and of
+# the forward's output in D = rowsum(dO*O)); float32 1e-4 (sums over keys,
+# query rows or rows in another order).  Cross-entropy: float32 1e-5,
+# bfloat16 2e-2, as in tests/test_kernels.py.
+
+BWD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _assert_grad_close(got, want, dtype, label=""):
+    tol = BWD_TOLS[dtype]
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()),
+                               err_msg=label)
+
+
+def _plain_grads(fn, inputs, dout):
+    xs = [x.detach().float().requires_grad_(True) for x in inputs]
+    return torch.autograd.grad(fn(*xs), xs, dout.float())
+
+
+GPU_FLASH_BWD = [  # (B, H, KV, S, hd, causal, window, dtype)
+    (1, 4, 4, 128, 64, True, 0, "float32"),       # MHA
+    (2, 8, 2, 200, 64, True, 0, "float32"),       # GQA 4:1, ragged
+    (1, 4, 1, 130, 128, True, 0, "float32"),      # MQA, hd 128
+    (1, 4, 2, 100, 16, True, 0, "float32"),       # hd 16
+    (1, 2, 2, 256, 64, True, 32, "float32"),      # window 32
+    (1, 2, 2, 130, 128, False, 0, "float32"),     # non-causal
+    (2, 28, 4, 512, 128, True, 0, "bfloat16"),    # qwen2's heads
+    (1, 28, 4, 200, 128, True, 32, "bfloat16"),   # window, ragged
+    (1, 4, 1, 100, 16, True, 0, "bfloat16"),      # MQA, hd 16
+    (1, 8, 2, 70, 64, True, 0, "bfloat16"),       # a single ragged tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,dtype", GPU_FLASH_BWD)
+def test_cuda_flash_bwd_matches_plain(cuda, B, H, KV, S, hd, causal, window,
+                                      dtype):
+    q, k, v = (_torch(_normal(i, (B, S, n, hd)), dtype, cuda).requires_grad_()
+               for i, n in enumerate((H, KV, KV)))
+    dout = _torch(_normal(3, (B, S, H, hd)), dtype, cuda)
+    before = (tfa.launches, tfa.bwd_launches)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():   # the forward with lse writes the same output
+        assert torch.equal(out, tfa.flash_attention(q, k, v, causal=causal,
+                                                    window=window))
+    want = _plain_grads(
+        lambda q, k, v: ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2), (q, k, v), dout)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        _assert_grad_close(g, w, dtype, f"d{name}")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_lse_is_the_rows_logsumexp(cuda):
+    B, H, KV, S, hd, window = 1, 4, 2, 150, 64, 32
+    q, k, v = (_torch(_normal(i, (B, S, n, hd)), "float32", cuda)
+               for i, n in enumerate((H, KV, KV)))
+    _, lse = tfa.flash_attention(q, k, v, window=window, return_lse=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(H // KV, 2))
+    qi = torch.arange(S, device=cuda)[:, None]
+    kj = torch.arange(S, device=cuda)[None, :]
+    mask = (kj <= qi) & (kj > qi - window)
+    want = torch.logsumexp((s / hd ** 0.5).masked_fill(~mask, float("-inf")),
+                           -1)
+    np.testing.assert_allclose(_np(lse), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_refuses_cross_attention(cuda):
+    q = torch.zeros(1, 64, 4, 64, device=cuda, requires_grad=True)
+    kv = torch.zeros(1, 128, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ops.flash_attention(q, kv, kv)
+    out, lse = tfa.flash_attention(q.detach(), kv, kv, return_lse=True)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tfa.flash_attention_bwd(q.detach(), kv, kv, out, lse, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 64, 256), (1, 7, 512),
+                                   (2, 512, 3584), (3, 1000)])
+def test_cuda_rmsnorm_bwd_matches_plain(cuda, shape, dtype):
+    x = _torch(_normal(0, shape), dtype, cuda).requires_grad_()
+    scale = _torch(1 + 0.1 * _normal(1, shape[-1:]), dtype,
+                   cuda).requires_grad_()
+    dy = _torch(_normal(2, shape), dtype, cuda)
+    before = (trn.launches, trn.bwd_launches)
+    got = torch.autograd.grad(ops.rmsnorm(x, scale, 1e-6), (x, scale), dy)
+    torch.cuda.synchronize()
+    assert (trn.launches, trn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _plain_grads(lambda x, s: ref.rmsnorm_ref(x, s, 1e-6), (x, scale),
+                        dy)
+    for name, g, w in zip(("x", "scale"), got, want):
+        assert g.dtype == x.dtype
+        _assert_grad_close(g, w, dtype, f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,V", [(8, 512), (16, 1000), (4, 4096),
+                                 (33, 152064)])
+def test_cuda_cross_entropy_fwd_bwd_matches_plain(cuda, T, V, dtype):
+    """Negative labels included; V 1000 and 152064 are not powers of two."""
+    logits = _torch(2 * _normal(0, (T, V)), dtype, cuda).requires_grad_()
+    labels = torch.from_numpy(np.random.default_rng(1).integers(
+        -1, V, T)).to(cuda)
+    labels[0] = -1
+    g = _torch(np.random.default_rng(2).random(T).astype(np.float32),
+               "float32", cuda)
+    before = (tce.launches, tce.bwd_launches)
+    nll = ops.fused_cross_entropy(logits, labels)
+    (got,) = torch.autograd.grad(nll, logits, g)
+    torch.cuda.synchronize()
+    assert (tce.launches, tce.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert nll.dtype == torch.float32 and got.dtype == logits.dtype
+    tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
+    np.testing.assert_allclose(_np(nll), _np(ref.cross_entropy_ref(logits,
+                                                                   labels)),
+                               rtol=tol, atol=tol)
+    (want,) = _plain_grads(lambda x: ref.cross_entropy_ref(x, labels),
+                           (logits,), g)
+    _assert_grad_close(got, want, "float32" if dtype == "float32"
+                       else "bfloat16")
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda):
+    """One float32 smoke train step on the card (kernels) against the CPU
+    (plain versions), from the same parameters: loss within 1e-4, gradients
+    within 1e-4 relative and of the leaf's largest entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config("qwen2-7b").smoke(sliding_window=32, n_kv_heads=2)
+    t_cpu, t_gpu = (train.setup(cfg, steps=2, batch=2, seq=100, device=d)
+                    for d in ("cpu", "cuda"))
+    s_cpu = t_cpu.init()
+    s_gpu = tree_map(lambda x: x.to(cuda) if isinstance(x, torch.Tensor)
+                     else x, s_cpu)
+    batch = t_cpu.pipeline.batch_at(0)
+    grads = []
+    for t, s, dev in ((t_cpu, s_cpu, "cpu"), (t_gpu, s_gpu, cuda)):
+        for p in leaves(s.params):
+            p.requires_grad_(True)
+        loss, _ = t.model.loss(s.params, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in batch.items()})
+        grads.append((loss, torch.autograd.grad(loss, leaves(s.params))))
+    (lc, gc), (lg, gg) = grads
+    assert abs(lc.item() - lg.item()) <= 1e-4
+    for a, b in zip(gg, gc):
+        _assert_grad_close(a, b, "float32")
+    s_cpu, m_cpu = t_cpu.train_step(s_cpu, batch)
+    s_gpu, m_gpu = t_gpu.train_step(s_gpu, batch)
+    assert abs(float(m_cpu["loss"]) - float(m_gpu["loss"])) <= 1e-4

@@ -106,8 +106,7 @@ class TestFlashAttention:
         want = ref.flash_attention_ref(q, k, v, causal=case[6],
                                        window=case[7])
         torch.testing.assert_close(got.transpose(1, 2), want, rtol=0, atol=0)
-        assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                                       "ssd_scan": 0}
+        assert not any(ops.launch_counts().values())
 
     def test_kernel_refuses_cpu_tensors(self):
         q = torch.zeros(1, 64, 4, 64)

@@ -116,8 +116,7 @@ def test_generate_on_cpu_runs_the_plain_path():
     assert bool(r["finite"]) and r["logits"].shape == (3, cfg.vocab_size)
     assert int(r["tokens"].min()) >= 0
     assert int(r["tokens"].max()) < cfg.vocab_size
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                                   "ssd_scan": 0}
+    assert not any(ops.launch_counts().values())
 
 
 def test_generate_mamba_on_cpu_runs_the_plain_path():
@@ -133,8 +132,7 @@ def test_generate_mamba_on_cpu_runs_the_plain_path():
     assert bool(r["finite"]) and r["logits"].shape == (3, cfg.vocab_size)
     assert int(r["tokens"].min()) >= 0
     assert int(r["tokens"].max()) < cfg.vocab_size
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                                   "ssd_scan": 0}
+    assert not any(ops.launch_counts().values())
 
 
 def test_init_cache_shapes():
@@ -154,6 +152,13 @@ def test_later_families_raise(arch):
 
 
 def test_loss_waits_for_training_slice():
-    model = get_model(get_config("qwen2-7b-smoke"), device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.loss({}, {})
+    """The dense loss came with the training slice; a model with Mamba
+    units waits for the slice with the SSD backward kernel."""
+    tokens = torch.zeros(1, 8, dtype=torch.int64)
+    batch = {"tokens": tokens, "labels": tokens}
+    model = get_model(get_config("mamba2-370m-smoke"), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model.loss(model.init(0), batch)
+    dense = get_model(get_config("qwen2-7b-smoke"), device="cpu")
+    loss, parts = dense.loss(dense.init(0), batch)
+    assert bool(torch.isfinite(loss)) and set(parts) == {"ce", "aux"}
