@@ -9,12 +9,17 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
 
 1. device    -- the card's name and power limit (nvidia-smi), torch versions;
 2. build     -- nvcc for each CUDA source (all started together), Triton
-                JIT, build seconds, ptxas register and spill lines;
+                JIT, build seconds, ptxas register and spill lines; each bf16
+                flash kernel's spill bytes (ptxas) and its tensor-core
+                instructions (HMMA/HGMMA in ``cuobjdump -sass``), failing on
+                a spill or on a kernel with no tensor-core instruction;
 3. kernels   -- each of the seven kernels (four forward, three backward)
                 against its plain PyTorch version on the card at the
                 serving and training shapes, with the stated tolerance;
                 kernel, plain and library times (CUDA events) beside the
-                card's bound;
+                card's bound; the flash kernels' TFLOP/s and share of the
+                bound, the forward also at the train shape beside SDPA's
+                forward, and two backward calls bit-equal;
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
                 tokens, logits within 1e-3 (dense qwen2, Mamba-2 with the
@@ -46,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -174,17 +180,87 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> float:
+# The bf16 flash kernels (tensor cores) in each library, each built for
+# every head_dim the launcher takes.
+BF16_FLASH = {"flash_attention": ("flash_fwd_bf16_kernel",),
+              "flash_attention_bwd": ("flash_bwd_dq_bf16_kernel",
+                                      "flash_bwd_dkv_bf16_kernel")}
+
+
+def _ptxas(log: str) -> dict[str, dict]:
+    """Registers and spill bytes of each kernel in an ``-Xptxas -v`` log,
+    by mangled name."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def _sass_tensor_ops(lib: Path) -> dict[str, dict]:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions of each kernel in the
+    library's SASS, by mangled name."""
+    from repro_torch.kernels import build
+
+    sass = subprocess.run([str(Path(build._nvcc()).parent / "cuobjdump"),
+                           "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    return {name: {"HMMA": len(re.findall(r"\bHMMA\.", body)),
+                   "HGMMA": len(re.findall(r"\bHGMMA\.", body))}
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def _check_bf16_flash() -> dict[str, dict]:
+    """Each bf16 flash kernel at each head_dim: no spill, and its products
+    on the tensor cores.  Returns the head_dim 128 instantiations' report."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    report = {}
+    for lib, kernels in BF16_FLASH.items():
+        ptxas = _ptxas(build.build_log(lib))
+        sass = _sass_tensor_ops(build.library_path(lib))
+        for kernel in kernels:
+            for hd in fa.HEAD_DIMS:
+                names = [n for n in ptxas if kernel in n and f"ILi{hd}E" in n]
+                if len(names) != 1 or names[0] not in sass:
+                    fail(f"{kernel}<{hd}> not found in the ptxas log and the "
+                         f"SASS of {lib}")
+                info = {**ptxas[names[0]], **sass[names[0]]}
+                print(f"  {kernel}<{hd}>: {info.get('registers')} registers, "
+                      f"{info.get('spill_bytes')} spill bytes, HMMA "
+                      f"{info['HMMA']}, HGMMA {info['HGMMA']}")
+                if info.get("spill_bytes") != 0:
+                    fail(f"{kernel}<{hd}> spills ({info.get('spill_bytes')} "
+                         "bytes) or ptxas reported nothing")
+                if not info["HMMA"] + info["HGMMA"]:
+                    fail(f"{kernel}<{hd}> runs no tensor-core instruction")
+                if hd == 128:
+                    report[kernel] = info
+    return report
+
+
+def phase_build() -> dict[str, dict]:
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_ce as ce
     from repro_torch.kernels import rmsnorm as rn
 
     print("[2/7] build")
     t0 = time.perf_counter()
-    logs = build.build()
+    build.build()
     t_nvcc = time.perf_counter() - t0
-    for name, log in logs.items():
-        for line in log.splitlines():
+    for name in build.SOURCES:
+        for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     # Triton JIT of the four Triton kernels at the model's widths.
@@ -199,7 +275,7 @@ def phase_build() -> float:
     total = time.perf_counter() - t0
     print(f"  build_s={total:.2f} (nvcc {t_nvcc:.2f}, triton "
           f"{total - t_nvcc:.2f})")
-    return total
+    return _check_bf16_flash()
 
 
 def _rmsnorm_entry(cfg) -> dict:
@@ -300,11 +376,14 @@ def _flash_entry(cfg) -> dict:
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     is_causal=True, enable_gqa=True), args),
             bound_ms=b_ms, bound_by=b_by, shape=list(q.shape))
+        entry.update(tflops=flops / entry["ms"] / 1e9,
+                     bound_share=b_ms / entry["ms"])
         print(f"  time {label}: kernel {entry['ms']:.4f} ms (per call from "
               f"the host {entry['call_ms']:.4f} ms), plain "
               f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} GFLOP, "
-              f"{n_bytes / 1e6:.1f} MB)")
+              f"{n_bytes / 1e6:.1f} MB); {entry['tflops']:.1f} TFLOP/s, "
+              f"{100 * entry['bound_share']:.1f}% of the bound")
     return entry
 
 
@@ -421,7 +500,9 @@ def _check_grads(label: str, got: tuple, want: tuple, tol: float,
                for n, g, w in zip(names, got, want))
 
 
-def _flash_bwd_entry(cfg) -> dict:
+def _flash_bwd_entry(cfg, fwd: dict) -> dict:
+    """The backward's entry; the forward's train-shape numbers (``*_train``)
+    go into ``fwd``, the forward's entry."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -470,18 +551,25 @@ def _flash_bwd_entry(cfg) -> dict:
               FLASH_TOL[dtype])
         check(f"{label} forward lse", lse, plain_lse(q, k, v, window), LSE_TOL)
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+        if not all(map(torch.equal, got, again)):
+            fail(f"{label}: two backward calls on the same inputs differ")
+        del again
         want = _grads(lambda q, k, v: plain(q, k, v, window), (q, k, v), dout,
                       torch.float32)
         err = _check_grads(label, got, want, BWD_TOL[dtype], "qkv")
+        print(f"  check {label}: a second call's dq, dk, dv bit-equal ok")
         del want
         if (B, S, dtype) != (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16):
             continue
         # q, k, v, o, dO and lse read once; dq, dk, dv written once; five
-        # products of the forward's size (scores, dP, dV, dK, dQ).
+        # products of the forward's size (scores, dP, dV, dK, dQ).  The two
+        # passes execute seven (S and dP in each): 1.4x this count.
         n_bytes = (sum(t.numel() * t.element_size()
                        for t in (q, k, v, out, dout, q, k, v))
                    + lse.numel() * 4)
-        flops = 10 * B * h * d * _flash_pairs(S, S, True, window)
+        pairs = _flash_pairs(S, S, True, window)
+        flops = 10 * B * h * d * pairs
         b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
         args = [(q, k, v, out, lse, dout)]
         entry.update(
@@ -497,14 +585,38 @@ def _flash_bwd_entry(cfg) -> dict:
                     is_causal=True, enable_gqa=True).transpose(1, 2),
                 (q, k, v), dout), [()], iters=5, warmup=1),
             bound_ms=b_ms, bound_by=b_by, shape=list(q.shape))
-        entry["fwd_train_ms"] = time_ms(
-            lambda q, k, v: fa.flash_attention(q, k, v, return_lse=True),
-            [(q, k, v)], iters=5, warmup=1)
+        entry.update(tflops=flops / entry["ms"] / 1e9,
+                     executed_tflops=1.4 * flops / entry["ms"] / 1e9,
+                     bound_share=b_ms / entry["ms"])
         print(f"  time {label}: kernel {entry['ms']:.3f} ms, plain "
               f"{entry['plain_ms']:.3f} ms, library {entry['library_ms']:.3f} "
               f"ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
-              f"{n_bytes / 1e6:.1f} MB); forward with lse at this shape "
-              f"{entry['fwd_train_ms']:.3f} ms")
+              f"{n_bytes / 1e6:.1f} MB); {entry['tflops']:.1f} TFLOP/s by "
+              f"the bound's count ({entry['executed_tflops']:.1f} executed), "
+              f"{100 * entry['bound_share']:.1f}% of the bound")
+        # The forward with lse at this shape, as the train step runs it.
+        f_flops = 4 * B * h * d * pairs
+        f_ms, f_by = bound(sum(t.numel() * t.element_size()
+                               for t in (q, k, v, out)) + lse.numel() * 4,
+                           f_flops, BF16_TENSOR_FLOPS)
+        fwd.update(
+            ms_train=time_ms(
+                lambda q, k, v: fa.flash_attention(q, k, v, return_lse=True),
+                [(q, k, v)], iters=5, warmup=1),
+            library_ms_train=time_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True), [(q, k, v)], iters=5,
+                warmup=1),
+            bound_ms_train=f_ms, bound_by_train=f_by,
+            shape_train=list(q.shape))
+        fwd.update(tflops_train=f_flops / fwd["ms_train"] / 1e9,
+                   bound_share_train=f_ms / fwd["ms_train"])
+        print(f"  time flash_attention with lse {list(q.shape)}: kernel "
+              f"{fwd['ms_train']:.3f} ms, library (SDPA) "
+              f"{fwd['library_ms_train']:.3f} ms, bound {f_ms:.4f} ms "
+              f"({f_by}); {fwd['tflops_train']:.1f} TFLOP/s, "
+              f"{100 * fwd['bound_share_train']:.1f}% of the bound")
     return entry
 
 
@@ -628,10 +740,15 @@ def _ce_entries(cfg) -> list[dict]:
     return [fwd, bwd]
 
 
-def phase_kernels(cfg) -> list[dict]:
+def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     print("[3/7] kernels against their plain versions")
-    entries = [_flash_entry(cfg), _flash_bwd_entry(cfg), _rmsnorm_entry(cfg),
-               _rmsnorm_bwd_entry(cfg), _ssd_entry(), *_ce_entries(cfg)]
+    fwd = _flash_entry(cfg)
+    bwd = _flash_bwd_entry(cfg, fwd)
+    fwd["build_hd128"] = {"flash_fwd_bf16_kernel":
+                          built["flash_fwd_bf16_kernel"]}
+    bwd["build_hd128"] = {k: built[k] for k in BF16_FLASH["flash_attention_bwd"]}
+    entries = [fwd, bwd, _rmsnorm_entry(cfg), _rmsnorm_bwd_entry(cfg),
+               _ssd_entry(), *_ce_entries(cfg)]
     torch.cuda.empty_cache()
     return entries
 
@@ -977,8 +1094,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
 
-    phase_build()
-    kernels = phase_kernels(get_config("qwen2-7b"))
+    built = phase_build()
+    kernels = phase_kernels(get_config("qwen2-7b"), built)
     phase_reference()
     serves = {arch: phase_serve(arch, prompt) for arch, prompt in SERVES}
     torch.cuda.empty_cache()

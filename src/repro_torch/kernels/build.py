@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain ``extern "C"`` interface.  Libraries go to ``kernels/_build/`` (listed
-in ``.gitignore``), named by a hash of the source and the flags, so a
-changed source builds anew and an unchanged one loads at once.  Nothing is
-built when the package is imported: the first launch builds, or a caller
-(``chip_smoke.py``) calls :func:`build` up front to time it.
+in ``.gitignore``), named by a hash of the source, the headers in ``csrc/``
+and the flags, so a changed source builds anew and an unchanged one loads at
+once; each build's compiler log (``-Xptxas -v``) is kept beside it.
+Nothing is built when the package is imported: the first launch builds, or
+a caller (``chip_smoke.py``) calls :func:`build` up front to time it.
 """
 
 from __future__ import annotations
@@ -38,15 +39,24 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler log of the built library ``name`` (ptxas registers,
+    shared memory and spills of each kernel)."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one nvcc
     process per source, all started together.  Returns each new build's
-    compiler log (ptxas register and shared-memory report); raises
-    ``RuntimeError`` with the log if a compile fails."""
+    compiler log (ptxas register and shared-memory report, also kept for
+    :func:`build_log`); raises ``RuntimeError`` with the log if a compile
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -64,6 +74,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
         if proc.returncode:
             failed.append(name)
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"

@@ -10,6 +10,15 @@ differentiates its jnp attention), takes that log-sum-exp and returns dq,
 dk, dv for self-attention (Sq == Sk).  Their plain version is
 ``repro_torch.kernels.ref.flash_attention_ref`` and autograd through it;
 ``ops.flash_attention`` picks between the two by the device of the tensors.
+
+Each C entry point picks its kernel by dtype: bfloat16 runs on the tensor
+cores (``wgmma`` on bf16 tiles in shared memory loaded by ``cp.async``),
+which copy rows in 16-byte chunks, so a bfloat16 tensor needs a 16-byte
+aligned base and batch, sequence and head strides in multiples of 8 elements
+(``_check`` raises otherwise); float32 runs the CUDA-core kernels, since TF32
+products would not hold float32's tolerance.  Nothing falls back from one to
+the other.  The tile walks of the bf16 kernels are mirrored below
+(``key_tiles``, ``query_tiles``, ``tile_needs_mask``) for the CPU tests.
 """
 
 from __future__ import annotations
@@ -23,6 +32,13 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128)
+# Tiles of the bf16 kernels, as (rows per block, rows per streamed tile):
+# the forward's query rows and key tile (Bf16Fwd in csrc/flash_attention.cu);
+# the backward's dQ pass (query rows, key tile) and dK/dV pass (key rows,
+# query tile) (Bf16Bwd in csrc/flash_attention_bwd.cu).
+FWD_TILES = (128, 128)
+BWD_DQ_TILES = (128, 128)
+BWD_DKV_TILES = (128, 64)
 
 #: Kernel launches in this process (forward, backward);
 #: ``ops.reset_launch_counts`` zeroes them.  One backward launch runs two
@@ -51,6 +67,55 @@ def _kernel(entry: str = "flash_attention_fwd"):
         fn.restype = ctypes.c_int
         _fns[entry] = fn
     return _fns[entry]
+
+
+def key_tiles(q0: int, bq: int, bk: int, Sq: int, Sk: int, causal: bool,
+              window: int) -> range:
+    """Key tiles of ``bk`` rows that hold a live key of query rows
+    ``[q0, q0 + bq)``, as ``Mask::key_tiles`` in ``csrc/flash_mma.cuh``
+    walks them (queries right-aligned at offset ``Sk - Sq``)."""
+    off = Sk - Sq
+    q_last = min(q0 + bq, Sq) - 1
+    k_lo = max(0, q0 + off - window + 1) if window else 0
+    k_hi = min(Sk - 1, q_last + off) if causal else Sk - 1
+    lo = k_lo // bk
+    return range(lo, k_hi // bk + 1 if k_hi >= k_lo else lo)
+
+
+def query_tiles(k0: int, bk: int, bq: int, S: int, causal: bool,
+                window: int) -> range:
+    """Query tiles of ``bq`` rows holding a row that sees a key of
+    ``[k0, k0 + bk)`` in self-attention, as ``Mask::query_tiles`` walks
+    them (the dK/dV pass)."""
+    k_last = min(k0 + bk, S) - 1
+    q_lo = k0 if causal else 0
+    q_hi = min(S - 1, k_last + window - 1) if window else S - 1
+    lo = q_lo // bq
+    return range(lo, q_hi // bq + 1 if q_hi >= q_lo else lo)
+
+
+def tile_needs_mask(q0: int, bq: int, k0: int, bk: int, Sq: int, Sk: int,
+                    causal: bool, window: int) -> bool:
+    """Whether query rows ``[q0, q0 + bq)`` x keys ``[k0, k0 + bk)`` hold a
+    pair that is not live, so the kernel applies its per-element mask
+    (``Mask::needs_mask``); the other visited tiles skip it."""
+    off = Sk - Sq
+    q_last = min(q0 + bq, Sq) - 1
+    return (k0 + bk > Sk or q0 + bq > Sq
+            or (causal and k0 + bk - 1 > q0 + off)
+            or bool(window and k0 <= q_last + off - window))
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernels copy rows in 16-byte chunks (``cp.async``)."""
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16
+            or any(st % 8 for n, st in zip(t.shape[:3], t.stride()[:3])
+                   if n > 1)):
+        raise ValueError(f"flash_attention: bfloat16 {name} needs 16-byte "
+                         f"aligned rows (base pointer, and batch, sequence "
+                         f"and head strides in multiples of 8 elements), got "
+                         f"pointer {t.data_ptr():#x} strides {t.stride()}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,6 +149,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: empty batch or sequence")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_aligned(name, t)
 
 
 def _strides(*tensors: torch.Tensor):
@@ -141,6 +208,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(q.shape)} {q.dtype} with a contiguous "
                              f"head_dim, got {tuple(t.shape)} {t.dtype} "
                              f"strides {t.stride()}")
+        _check_aligned(name, t)
     if (lse.shape != (B, H, S) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "

@@ -31,8 +31,9 @@ from repro_torch.launch.serve import prompt_tokens
 from repro_torch.models import get_model
 
 
-# Kernel-name fragment -> group, first match wins.
-_KERNEL_GROUPS = (("flash_fwd_kernel", "flash_attention"),
+# Kernel-name fragment -> group, first match wins: "flash_fwd" and
+# "flash_bwd" cover the float32 and the bf16 kernels of each.
+_KERNEL_GROUPS = (("flash_fwd", "flash_attention"),
                   ("flash_bwd", "flash_attention_bwd"),
                   ("ssd_scan_kernel", "ssd_scan"),
                   ("rmsnorm_fwd", "rmsnorm"),

@@ -59,6 +59,19 @@ GPU_FLASH = [  # (B, H, KV, Sq, Sk, hd, causal, window, dtype)
     (1, 2, 2, 130, 130, 128, False, 0, "float32"),
     (2, 28, 4, 512, 512, 128, True, 0, "bfloat16"),
     (1, 28, 4, 200, 200, 128, True, 128, "bfloat16"),
+    # bf16 (tensor cores) for each feature above, and S around the 128-row
+    # query tile
+    (1, 4, 4, 128, 128, 64, True, 0, "bfloat16"),
+    (2, 8, 2, 200, 200, 64, True, 0, "bfloat16"),     # GQA, ragged
+    (1, 4, 1, 64, 256, 128, True, 0, "bfloat16"),     # Sq < Sk
+    (1, 4, 2, 100, 100, 16, True, 0, "bfloat16"),
+    (1, 2, 2, 256, 256, 64, True, 32, "bfloat16"),
+    (1, 2, 2, 130, 130, 128, False, 0, "bfloat16"),   # non-causal
+    (1, 4, 2, 300, 300, 128, True, 70, "bfloat16"),   # window across tiles
+    (1, 4, 2, 1, 1, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 127, 127, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 129, 129, 64, True, 0, "bfloat16"),
+    (1, 4, 2, 129, 300, 16, False, 0, "bfloat16"),    # Sq < Sk, non-causal
 ]
 
 
@@ -92,6 +105,30 @@ def test_cuda_flash_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         h = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.float16)
         tfa.flash_attention(h, h, h)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_unaligned_bf16_rows(cuda):
+    """The bf16 kernels copy 16-byte chunks: a base pointer or a stride that
+    breaks that raises before a launch (float32 takes them)."""
+    ok = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.bfloat16)
+    shifted = torch.zeros(ok.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view(ok.shape)
+    padded = torch.zeros(1, 64, 4, 68, device=cuda,
+                         dtype=torch.bfloat16)[..., :64]   # head stride 68
+    before = (tfa.launches, tfa.bwd_launches)
+    for bad in (shifted, padded):
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention(bad, ok, ok)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention(ok, ok, bad)
+    out, lse = tfa.flash_attention(ok, ok, ok, return_lse=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_bwd(ok, ok, ok, out, lse, padded)
+    assert (tfa.launches, tfa.bwd_launches) == (before[0] + 1, before[1])
+    padded32 = torch.zeros(1, 64, 4, 68, device=cuda)[..., :64]
+    tfa.flash_attention(padded32, ok.float(), ok.float())
+    assert tfa.launches == before[0] + 2
 
 
 @pytest.mark.cuda
@@ -212,11 +249,15 @@ def test_cuda_ssd_scan_refuses_what_it_does_not_take(cuda):
 BWD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
-def _assert_grad_close(got, want, dtype, label=""):
+def _assert_grad_close(got, want, dtype, label="", top=0.0):
+    """Within rtol ``tol`` and ``tol`` times the gradient's largest entry;
+    for a gradient that is exactly 0 (dq at S = 1, where the one key's
+    weight is 1 whatever q is), ``tol`` times ``top``, the largest entry of
+    the other gradients, since rounding leaves a residue of that scale."""
     tol = BWD_TOLS[dtype]
     want = _np(want)
-    np.testing.assert_allclose(_np(got), want, rtol=tol,
-                               atol=tol * float(np.abs(want).max()),
+    scale = float(np.abs(want).max()) or top
+    np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol * scale,
                                err_msg=label)
 
 
@@ -236,6 +277,18 @@ GPU_FLASH_BWD = [  # (B, H, KV, S, hd, causal, window, dtype)
     (1, 28, 4, 200, 128, True, 32, "bfloat16"),   # window, ragged
     (1, 4, 1, 100, 16, True, 0, "bfloat16"),      # MQA, hd 16
     (1, 8, 2, 70, 64, True, 0, "bfloat16"),       # a single ragged tile
+    # bf16 (tensor cores) for each float32 feature above, and S around the
+    # 128-row tiles
+    (1, 4, 4, 128, 64, True, 0, "bfloat16"),      # MHA
+    (2, 8, 2, 200, 64, True, 0, "bfloat16"),      # GQA 4:1, ragged
+    (1, 4, 1, 130, 128, True, 0, "bfloat16"),     # MQA, hd 128
+    (1, 2, 2, 256, 64, True, 32, "bfloat16"),     # window 32
+    (1, 2, 2, 130, 128, False, 0, "bfloat16"),    # non-causal
+    (1, 4, 2, 300, 128, True, 70, "bfloat16"),    # window across tiles
+    (1, 4, 2, 1, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 127, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 129, 64, True, 0, "bfloat16"),
+    (1, 4, 2, 200, 16, False, 0, "bfloat16"),     # non-causal, hd 16
 ]
 
 
@@ -258,9 +311,25 @@ def test_cuda_flash_bwd_matches_plain(cuda, B, H, KV, S, hd, causal, window,
         lambda q, k, v: ref.flash_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2), (q, k, v), dout)
+    top = max(float(w.abs().max()) for w in want)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == q.dtype and g.shape == w.shape
-        _assert_grad_close(g, w, dtype, f"d{name}")
+        _assert_grad_close(g, w, dtype, f"d{name}", top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_bwd_is_deterministic(cuda, dtype):
+    """No atomics: the same inputs give bit-equal dq, dk and dv."""
+    B, H, KV, S, hd, window = 2, 28, 4, 300, 128, 0
+    q, k, v, dout = (_torch(_normal(i, (B, S, n, hd)), dtype, cuda)
+                     for i, n in enumerate((H, KV, KV, H)))
+    out, lse = tfa.flash_attention(q, k, v, window=window, return_lse=True)
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+    for _ in range(3):
+        again = tfa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                        window=window)
+        assert all(map(torch.equal, first, again))
 
 
 @pytest.mark.cuda
