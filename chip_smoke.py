@@ -10,16 +10,21 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
 1. device    -- the card's name and power limit (nvidia-smi), torch versions;
 2. build     -- nvcc for each CUDA source (all started together), Triton
                 JIT, build seconds, ptxas register and spill lines; each bf16
-                flash kernel's spill bytes (ptxas) and its tensor-core
-                instructions (HMMA/HGMMA in ``cuobjdump -sass``), failing on
-                a spill or on a kernel with no tensor-core instruction;
+                tensor-core kernel's spill bytes (ptxas), its tensor-core
+                instructions (HMMA/HGMMA in ``cuobjdump -sass``) and its
+                asynchronous copies (LDGSTS, i.e. cp.async), failing on a
+                spill or on a kernel without either instruction;
 3. kernels   -- each of the seven kernels (four forward, three backward)
                 against its plain PyTorch version on the card at the
                 serving and training shapes, with the stated tolerance;
                 kernel, plain and library times (CUDA events) beside the
-                card's bound; the flash kernels' TFLOP/s and share of the
-                bound, the forward also at the train shape beside SDPA's
-                forward, and two backward calls bit-equal;
+                card's bound; the flash and SSD kernels' TFLOP/s and share
+                of the bound, the flash forward also at the train shape
+                beside SDPA's forward, and two calls of the flash backward
+                and of the bf16 SSD scan bit-equal; the SSD scan's CUDA
+                kernels per call and each one's device time (a
+                ``torch.profiler`` trace of ten calls) and the scratch one
+                call allocates (``torch.cuda.max_memory_allocated``);
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
                 tokens, logits within 1e-3 (dense qwen2, Mamba-2 with the
@@ -85,7 +90,7 @@ SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
 # -16); two summation orders differ by ~2.2e-4 of the largest entry
 # (measured on the card and on the CPU); 1e-3 leaves a 4x margin.
 SSD_STATE_TOL = 1e-3
-SSD_LAUNCHES_PER_CALL = 1
+SSD_LAUNCHES_PER_CALL = 1   # counted launches per call (of the launcher)
 REF_LOGIT_TOL = 1e-3  # float32 model, card vs CPU, a few layers
 # Backward kernels against autograd through the plain version in float32 on
 # the same values, as rtol and times the largest |gradient| as atol: bf16
@@ -180,11 +185,23 @@ def phase_device() -> str:
     return smi
 
 
-# The bf16 flash kernels (tensor cores) in each library, each built for
-# every head_dim the launcher takes.
-BF16_FLASH = {"flash_attention": ("flash_fwd_bf16_kernel",),
-              "flash_attention_bwd": ("flash_bwd_dq_bf16_kernel",
-                                      "flash_bwd_dkv_bf16_kernel")}
+# Every bf16 tensor-core kernel, by library: its kernels and the template
+# arguments of each instantiation as they appear in the mangled name (the
+# flash kernels per head_dim, the SSD kernels per (P, N)), and the
+# instantiation phase 3 reports with its kernel.
+def _bf16_tensor_core_kernels() -> dict[str, tuple]:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    flash_args = {f"hd{hd}": f"ILi{hd}E" for hd in fa.HEAD_DIMS}
+    ssd_args = {f"P{P}_N{N}": f"ILi{P}ELi{N}E" for P, N in ssd.SHAPES}
+    return {"flash_attention": (("flash_fwd_bf16_kernel",), flash_args,
+                                "hd128"),
+            "flash_attention_bwd": (("flash_bwd_dq_bf16_kernel",
+                                     "flash_bwd_dkv_bf16_kernel"),
+                                    flash_args, "hd128"),
+            "ssd_scan": (("ssd_cb_kernel", "ssd_chunk_state_kernel",
+                          "ssd_chunk_out_kernel"), ssd_args, "P64_N128")}
 
 
 def _ptxas(log: str) -> dict[str, dict]:
@@ -207,8 +224,8 @@ def _ptxas(log: str) -> dict[str, dict]:
 
 
 def _sass_tensor_ops(lib: Path) -> dict[str, dict]:
-    """HMMA (mma.sync) and HGMMA (wgmma) instructions of each kernel in the
-    library's SASS, by mangled name."""
+    """HMMA (mma.sync), HGMMA (wgmma) and LDGSTS (cp.async) instructions of
+    each kernel in the library's SASS, by mangled name."""
     from repro_torch.kernels import build
 
     sass = subprocess.run([str(Path(build._nvcc()).parent / "cuobjdump"),
@@ -216,36 +233,40 @@ def _sass_tensor_ops(lib: Path) -> dict[str, dict]:
                           timeout=300, check=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     return {name: {"HMMA": len(re.findall(r"\bHMMA\.", body)),
-                   "HGMMA": len(re.findall(r"\bHGMMA\.", body))}
+                   "HGMMA": len(re.findall(r"\bHGMMA\.", body)),
+                   "LDGSTS": len(re.findall(r"\bLDGSTS\b", body))}
             for name, body in zip(parts[1::2], parts[2::2])}
 
 
-def _check_bf16_flash() -> dict[str, dict]:
-    """Each bf16 flash kernel at each head_dim: no spill, and its products
-    on the tensor cores.  Returns the head_dim 128 instantiations' report."""
+def _check_bf16_tensor_cores() -> dict[str, dict]:
+    """Each bf16 tensor-core kernel at each instantiation: no spill, its
+    products on the tensor cores, its loads asynchronous.  Returns the
+    reported instantiations' numbers by kernel."""
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fa
 
     report = {}
-    for lib, kernels in BF16_FLASH.items():
+    for lib, (kernels, args, reported) in _bf16_tensor_core_kernels().items():
         ptxas = _ptxas(build.build_log(lib))
         sass = _sass_tensor_ops(build.library_path(lib))
         for kernel in kernels:
-            for hd in fa.HEAD_DIMS:
-                names = [n for n in ptxas if kernel in n and f"ILi{hd}E" in n]
+            for label, mangled in args.items():
+                names = [n for n in ptxas if kernel in n and mangled in n]
                 if len(names) != 1 or names[0] not in sass:
-                    fail(f"{kernel}<{hd}> not found in the ptxas log and the "
-                         f"SASS of {lib}")
+                    fail(f"{kernel}<{label}> not found in the ptxas log and "
+                         f"the SASS of {lib}")
                 info = {**ptxas[names[0]], **sass[names[0]]}
-                print(f"  {kernel}<{hd}>: {info.get('registers')} registers, "
-                      f"{info.get('spill_bytes')} spill bytes, HMMA "
-                      f"{info['HMMA']}, HGMMA {info['HGMMA']}")
+                print(f"  {kernel}<{label}>: {info.get('registers')} "
+                      f"registers, {info.get('spill_bytes')} spill bytes, "
+                      f"HMMA {info['HMMA']}, HGMMA {info['HGMMA']}, LDGSTS "
+                      f"{info['LDGSTS']}")
                 if info.get("spill_bytes") != 0:
-                    fail(f"{kernel}<{hd}> spills ({info.get('spill_bytes')} "
-                         "bytes) or ptxas reported nothing")
+                    fail(f"{kernel}<{label}> spills ({info.get('spill_bytes')}"
+                         " bytes) or ptxas reported nothing")
                 if not info["HMMA"] + info["HGMMA"]:
-                    fail(f"{kernel}<{hd}> runs no tensor-core instruction")
-                if hd == 128:
+                    fail(f"{kernel}<{label}> runs no tensor-core instruction")
+                if not info["LDGSTS"]:
+                    fail(f"{kernel}<{label}> has no asynchronous copy")
+                if label == reported:
                     report[kernel] = info
     return report
 
@@ -275,7 +296,7 @@ def phase_build() -> dict[str, dict]:
     total = time.perf_counter() - t0
     print(f"  build_s={total:.2f} (nvcc {t_nvcc:.2f}, triton "
           f"{total - t_nvcc:.2f})")
-    return _check_bf16_flash()
+    return _check_bf16_tensor_cores()
 
 
 def _rmsnorm_entry(cfg) -> dict:
@@ -396,6 +417,52 @@ def _ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
     return 2 * B * pairs * (N + H * P) + 4 * B * H * S * N * P
 
 
+def _ssd_executed_flops(B: int, S: int, H: int, P: int, N: int,
+                        chunk: int) -> int:
+    """Tensor-core operations the bf16 kernels execute in one call, counted
+    from their tiles (``ssd_scan.TILE`` rows, P and N padded to whole
+    64-column blocks) with the hi/lo split's second product: C.B^T per
+    causal tile pair; the local states (two products); the carried term and
+    the dual form per query tile (two products each)."""
+    from repro_torch.kernels.ssd_scan import TILE
+
+    PP, NP = max(P, 64), max(N, 64)
+    flops = 0
+    for c0 in range(0, S, chunk):
+        qt = -(-min(chunk, S - c0) // TILE)
+        pairs = qt * (qt + 1) // 2
+        flops += B * pairs * 2 * TILE * TILE * NP                    # C.B^T
+        flops += B * H * qt * 2 * 2 * PP * TILE * NP                 # states
+        flops += B * H * (qt * 2 * 2 * TILE * PP * NP                # carried
+                          + pairs * 2 * 2 * TILE * TILE * PP)        # dual
+    return flops
+
+
+def _kernels_per_call(fn, inputs: list[tuple], n: int = 10
+                      ) -> tuple[float, dict[str, float]]:
+    """CUDA kernels launched per call of ``fn(*args)`` and each kernel's
+    device microseconds per call, by name, from a ``torch.profiler`` trace
+    of ``n`` calls, ``args`` cycling through ``inputs``."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail("the profiler traced no device events")
+    us: dict[str, float] = defaultdict(float)
+    for e in events:
+        m = re.search(r"::(\w+)[<(]", e.name)
+        us[m.group(1) if m else e.name[:60]] += e.time_range.elapsed_us() / n
+    return len(events) / n, dict(sorted(us.items(), key=lambda kv: -kv[1]))
+
+
 def _ssd_entry() -> dict:
     import torch.nn.functional as F
 
@@ -425,11 +492,12 @@ def _ssd_entry() -> dict:
              "replaces": "src/repro/kernels/ssd_scan.py:82"}
     S_SERVE = SERVES[1][1]
     # (S, dtype, the model's A (else the test cases' A), initial state).  The
-    # serve shape, two ragged lengths (a partial chunk), float32 with the
-    # tests' A, and a nonzero initial state.
+    # serve shape, two ragged lengths (a partial chunk), a nonzero initial
+    # state in bf16 and in float32, float32 with the tests' A.
     cases = [(S_SERVE, torch.bfloat16, True, False),
              (200, torch.bfloat16, True, False),
              (300, torch.bfloat16, True, False),
+             (300, torch.bfloat16, True, True),
              (512, torch.float32, False, False),
              (300, torch.float32, False, True)]
     for S, dtype, model_a, init in cases:
@@ -444,6 +512,13 @@ def _ssd_entry() -> dict:
             1.0 if dtype == torch.bfloat16 else want_y.abs().max().item()))
         check(label + " state", st, want_st, SSD_STATE_TOL,
               atol=SSD_STATE_TOL * want_st.abs().max().item())
+        if dtype == torch.bfloat16 and S in (S_SERVE, 300):
+            y2, st2 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q,
+                                   initial_state=st0)
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                fail(f"{label}: two calls on the same inputs differ")
+            print(f"  check {label}: a second call's y and state bit-equal ok")
+            del y2, st2
         if (S, dtype, model_a, init) != cases[0]:
             continue
         # x, dt, A, B and C read once; y and the fp32 state written once.
@@ -468,10 +543,36 @@ def _ssd_entry() -> dict:
             library_ms=None,   # no single PyTorch call computes an SSD scan
             bound_ms=b_ms, bound_by=b_by, shape=list(x.shape),
             launches_per_call=SSD_LAUNCHES_PER_CALL)
+        per_call, us = _kernels_per_call(kernel, args)
+        if not any(name.startswith("ssd_") for name in us):
+            fail(f"{label}: the trace of the calls holds no ssd_ kernel")
+        # Bytes the call allocates beyond its outputs: the workspace.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = kernel(*args[0])
+        torch.cuda.synchronize()
+        scratch = (torch.cuda.max_memory_allocated() - before
+                   - sum(t.numel() * t.element_size() for t in out))
+        del out
+        executed = _ssd_executed_flops(BATCH, S, H, P, N, Q)
+        entry.update(
+            cuda_kernels_per_call=per_call, device_us_per_call=us,
+            tflops=flops / entry["ms"] / 1e9,
+            executed_tflops=executed / entry["ms"] / 1e9,
+            bound_share=b_ms / entry["ms"], scratch_bytes=scratch)
         print(f"  time {label}: kernel {entry['ms']:.4f} ms (per call from "
               f"the host {entry['call_ms']:.4f} ms), plain "
               f"{entry['plain_ms']:.4f} ms, library none, bound {b_ms:.4f} ms "
-              f"({b_by}, {flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+              f"({b_by}, {flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); "
+              f"{entry['tflops']:.1f} TFLOP/s by the bound's count "
+              f"({entry['executed_tflops']:.1f} by the {executed / 1e9:.2f} "
+              f"GFLOP the tiles execute), "
+              f"{100 * entry['bound_share']:.1f}% of the bound; "
+              f"{per_call:g} CUDA kernels per call in a trace "
+              f"({SSD_LAUNCHES_PER_CALL} counted launch): "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in us.items())
+              + f"; scratch allocated {scratch / 1e6:.1f} MB")
     return entry
 
 
@@ -746,9 +847,13 @@ def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     bwd = _flash_bwd_entry(cfg, fwd)
     fwd["build_hd128"] = {"flash_fwd_bf16_kernel":
                           built["flash_fwd_bf16_kernel"]}
-    bwd["build_hd128"] = {k: built[k] for k in BF16_FLASH["flash_attention_bwd"]}
-    entries = [fwd, bwd, _rmsnorm_entry(cfg), _rmsnorm_bwd_entry(cfg),
-               _ssd_entry(), *_ce_entries(cfg)]
+    bwd["build_hd128"] = {k: built[k] for k in ("flash_bwd_dq_bf16_kernel",
+                                                "flash_bwd_dkv_bf16_kernel")}
+    ssd = _ssd_entry()
+    ssd["build_P64_N128"] = {k: built[k] for k in (
+        "ssd_cb_kernel", "ssd_chunk_state_kernel", "ssd_chunk_out_kernel")}
+    entries = [fwd, bwd, _rmsnorm_entry(cfg), _rmsnorm_bwd_entry(cfg), ssd,
+               *_ce_entries(cfg)]
     torch.cuda.empty_cache()
     return entries
 

@@ -1,4 +1,4 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a), plain CUDA C++.
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan.py (ssd_scan /
 // _ssd_kernel / _segsum).  Per head h, with dA = dt * A[h] and cs its
@@ -7,34 +7,66 @@
 //         + exp(cs_i) C_i . state                                 (carried state)
 //   state = state exp(cs_last) + sum_j B_j exp(cs_last - cs_j) dt_j x_j
 // B and C are shared by all heads (n_groups 1).  The state is fp32 and
-// starts from the caller's initial state or zeros; y takes x's dtype.  x*dt
-// is formed in fp32, as the Pallas kernel forms it.
+// starts from the caller's initial state or zeros; y takes x's dtype.  Any
+// S is taken: the partial last chunk is masked (the model's plain scan
+// shrinks its chunk to gcd(S, chunk) instead, which is the same function).
 //
-// Design.  The TPU kernel walks the chunks on a sequential ("arbitrary")
-// grid axis with the [head_block, P, N] state in VMEM.  Blocks on Hopper
-// run in no order, so one thread block owns one (head, batch row) and walks
-// the chunks in a loop, keeping its [P, N] state (32 KB at P 64, N 128) in
-// shared memory for the whole sequence.  A whole chunk does not fit (at
-// Q 256, N 128 the C and B rows alone take 256 KB in fp32), so inside a
-// chunk the block tiles by 64 query rows: the carried-state term first,
-// then an inner loop over 64-row key tiles up to the diagonal, each giving
-// a masked, decayed [64, 64] score tile and its product with x*dt.  The
-// decay exp(cs_i - cs_j) is taken only where j <= i; elsewhere the score is
-// written as 0, so no exp of -inf differences is ever formed.  A last pass
-// over the chunk's key tiles accumulates the state update in registers.
-// The chunk's cumulative sum is a warp scan in shared memory.  The partial
-// last chunk of a sequence that is not a multiple of the chunk is masked
-// here, so any S is taken; the model's plain scan shrinks its chunk to
-// gcd(S, chunk) instead, which is the same function.
+// The C entry point picks the kernels by dtype.  This is not a fallback:
+// each dtype has its own kernels and nothing reaches the other's.
+//
+// bfloat16 -- the SSD algorithm's chunk-parallel decomposition (Dao & Gu
+// 2024, "Transformers are SSMs", section 6 / Listing 1) on the tensor
+// cores, four kernels per call; only the short state recurrence between
+// chunks is sequential:
+//   0. ssd_cb_kernel, one block per (64-row query tile, chunk, row): C.B^T
+//      of the chunk's causal tiles, wgmma on bf16 tiles (exact products,
+//      fp32 sums), written to scratch once for all heads (B and C are
+//      shared), so no head recomputes it.  A block owning all heads of a
+//      query tile would keep C.B^T without scratch, but would need every
+//      head's [P, N] state in shared memory and leave 128 blocks at the
+//      serving shape; the scratch (5.2 MB of causal tiles there, read from
+//      L2 once per head) lets step 3 run 1,024 blocks;
+//   1. ssd_chunk_state_kernel, one block per (head, chunk, row): the
+//      chunk's cumulative sum (a warp scan) and its local state
+//      sum_j x_j^T B_j dt_j exp(total - cs_j) [P, N], wgmma over 64-row key
+//      tiles, to scratch; and the chunk's total;
+//   2. ssd_state_pass_kernel, one thread per 8 entries of a (row, head)'s
+//      state: walks the chunks in order, writes the state entering each
+//      chunk over its local state, and the final state;
+//   3. ssd_chunk_out_kernel, one block per (head, chunk, row), 64 query rows
+//      at a time: exp(cs) C.state_in^T plus (C.B^T o L o dt) x, where the
+//      decay L = exp(cs_i - cs_j) is formed only where j <= i (no exp of a
+//      -inf difference), in registers from step 0's C.B^T; the block walks
+//      its (query tile, key tile) pairs as one pipeline, each pair's x and
+//      C.B^T tiles loading while the pair before is computed.
+// Every tile is bf16 in the 128-byte swizzled layout wgmma reads
+// (csrc/flash_mma.cuh), loaded by 16-byte cp.async in two stages; x, B
+// and C go in as the bf16 values they are.  An fp32 operand -- the
+// weighted x of step 1, the state of step 3, and M = C.B^T o L o dt -- is
+// split into hi = bf16(v) and lo = bf16(v - hi), two products into one
+// fp32 accumulator: ~16 bits of mantissa where one bf16 rounding (8 bits)
+// misses the 3e-2 tolerance (PERF.md).  The split doubles those products:
+// ~28 GFLOP executed at the serving shape for the 13.2 GFLOP the function
+// needs.  No atomics: two calls give bit-equal results.  The caller's
+// workspace holds the scratch (Workspace below).  The loads need 16-byte
+// aligned rows: base pointers, and the row strides of x, B and C, in
+// multiples of 8 elements (the launcher checks).
+//
+// float32 -- ssd_scan_kernel, the CUDA-core kernel of the first port: one
+// block per (head, row) walks the chunks with the [P, N] state in shared
+// memory and runs its products as fp32 fmaf loops on 64-row tiles.  TF32
+// or bf16 products would not hold float32's 2e-4 tolerance.
 //
 // Bound.  At the serving shape (B 4, S 2048, H 32, P 64, N 128, chunk 256,
 // bf16 x/B/C) one call moves ~77 MB (x and y 33.6 MB each, B and C 2.1 MB
-// each, dt 1 MB, the fp32 state 4.2 MB) and does ~13 GFLOP with the causal
-// half: ~23 us at the memory rate and ~13 us at the bf16 tensor-core rate
-// of an H100 SXM, so bytes bound it.  This first kernel runs its products
-// on the fp32 CUDA cores from shared memory, recomputes the C.B^T tiles in
-// every head's block and uses 128 blocks on 132 SMs, so it sits far above
-// that bound; tensor-core tiles are later work.
+// each, dt 1 MB, the fp32 state 4.2 MB) and needs ~13 GFLOP with the
+// causal half: ~23 us at the memory rate and ~13 us at the bf16
+// tensor-core rate of an H100 SXM, so bytes bound it.  The bf16 design
+// also moves its scratch: the local states written, read and rewritten
+// and read again (4 x 33.6 MB), C.B^T read once per head (from L2), and x
+// read twice.  Each block is one warpgroup that waits for its loads and
+// products in turn; TMA loads, warp specialisation and fusing the steps
+// are what remains (ROADMAP).
 //
 // Layout: x [B, S, H, P], Bm and Cm [B, S, N] read through their own
 // batch/sequence(/head) strides with the last dimension contiguous, so the
@@ -46,6 +78,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -67,6 +101,11 @@ struct Params {
   int64_t dt_sb, dt_ss, dt_sh;
   int64_t b_sb, b_ss;
   int64_t c_sb, c_ss;
+  // bf16 only: the scratch (Workspace), chunks and 64-row tiles per chunk.
+  float* local;
+  float* totals;
+  float* cb;
+  int nc, QT;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -357,27 +396,574 @@ int launch_shape(const Params& p, int P, int N, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------------------ bfloat16, tensor cores
+
+namespace fm = flash_mma;
+
+constexpr int KT = 64;         // rows of one query or key tile of a chunk
+constexpr int WG = 128;        // one warpgroup per block
+constexpr int PASS_THREADS = 256;
+constexpr int PASS_BATCH = 4;   // chunks whose loads step 2 issues together
+
+// Scratch of one bf16 call, carved from the caller's workspace: the chunks'
+// local states (then, in place, the hi/lo split of the state entering each
+// chunk) [B, nc, H, P, N] fp32; each chunk's total sum of dt*A [B, nc, H];
+// C.B^T per (row, chunk) [B, nc, QT, QT] tiles of 64 x 64 fp32, each in
+// the accumulator order of a warpgroup (float4 v of thread t at v * 128 + t).
+struct Workspace {
+  size_t local, totals, cb, bytes;  // offsets in bytes, and the total
+};
+
+__host__ __device__ inline size_t align256(size_t n) {
+  return (n + 255) / 256 * 256;
+}
+
+inline Workspace workspace_layout(int B, int S, int H, int P, int N,
+                                  int chunk) {
+  const size_t nc = (S + chunk - 1) / chunk, qt = (chunk + KT - 1) / KT;
+  Workspace w;
+  w.local = 0;
+  w.totals = align256(sizeof(float) * B * nc * H * P * N);
+  w.cb = w.totals + align256(sizeof(float) * B * nc * H);
+  w.bytes = w.cb + sizeof(float) * B * nc * qt * qt * KT * KT;
+  return w;
+}
+
+// Rounds the fp32 pair (a, b) to bf16 twice: hi = bf16(v), lo = bf16(v - hi).
+// hi + lo carries ~16 bits of v's mantissa, so two bf16 products (hi, lo)
+// into one fp32 accumulator stand for one product with the fp32 operand.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The hi and lo A fragments of k step kk from the accumulator n-tiles
+// (2kk, 2kk + 1), as fm::c_to_a forms one.
+__device__ __forceinline__ void c_to_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float (&c0)[4],
+                                             const float (&c1)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+}
+
+// dt of rows [c0, c0 + len) of one (row, head) into dts, and its cumulative
+// sum times a into cs (warp 0).  Ends in a barrier.
+__device__ __forceinline__ void stage_cumsum(const float* dt, int64_t dt_ss,
+                                             int c0, int len, float a,
+                                             float* dts, float* cs) {
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    dts[i] = dt[static_cast<int64_t>(c0 + i) * dt_ss];
+  __syncthreads();
+  if (threadIdx.x < 32) chunk_cumsum(dts, cs, len, a, threadIdx.x);
+  __syncthreads();
+}
+
+template <int P, int N>
+struct Bf16Cfg {
+  static constexpr int PP = fm::tile_hd(P);  // P as the tiles hold it
+  static constexpr int NP = fm::tile_hd(N);  // N as the tiles hold it
+  static_assert(PP == 64, "one warpgroup of 64 rows covers P");
+  // Step 0: C tile, B tiles in two stages.
+  static constexpr size_t SMEM_CB = sizeof(fm::bf16) * 3 * KT * NP;
+  // Step 1: x and B tiles in two stages (+ dt and its cumsum, by chunk).
+  static constexpr size_t SMEM_STATE = sizeof(fm::bf16) * 2 * KT * (PP + NP);
+  // Step 3: state hi and lo, C tile, x and G tiles in two stages (+ dt,
+  // cumsum).
+  static constexpr size_t SMEM_OUT =
+      sizeof(fm::bf16) * (2 * PP * NP + KT * NP + 2 * KT * PP) +
+      sizeof(float) * 2 * KT * KT;
+};
+
+// Step 0: C.B^T of one (query tile, chunk, row): G[i][j] = C_i . B_j for
+// the key tiles up to the diagonal, wgmma with both operands K-major in
+// shared memory, bf16 in and fp32 out, once for all heads.
+template <int P, int N>
+__global__ void __launch_bounds__(WG, 1) ssd_cb_kernel(Params p) {
+  using Cfg = Bf16Cfg<P, N>;
+  constexpr int NP = Cfg::NP;
+  extern __shared__ __align__(1024) uint4 smem_tiles[];
+  fm::bf16* Cs = reinterpret_cast<fm::bf16*>(smem_tiles);  // [KT][NP]
+  fm::bf16* Bs = Cs + KT * NP;                              // [2][KT][NP]
+  const int qt = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * p.chunk, len = min(p.chunk, p.S - c0);
+  if (qt * KT >= len) return;
+  const fm::bf16* Cg = static_cast<const fm::bf16*>(p.Cm) + b * p.c_sb +
+                       static_cast<int64_t>(c0) * p.c_ss;
+  const fm::bf16* Bg = static_cast<const fm::bf16*>(p.Bm) + b * p.b_sb +
+                       static_cast<int64_t>(c0) * p.b_ss;
+  float* G = p.cb + ((static_cast<int64_t>(b) * p.nc + c) * p.QT + qt) *
+                        p.QT * KT * KT;
+
+  fm::load_tile<KT, N, WG, NP>(Cs, Cg, p.c_ss, qt * KT, len);
+  fm::load_tile<KT, N, WG, NP>(Bs, Bg, p.b_ss, 0, len);
+  fm::cp_async_commit();
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    if (kt < qt)
+      fm::load_tile<KT, N, WG, NP>(Bs + (st ^ 1) * KT * NP, Bg, p.b_ss,
+                                   (kt + 1) * KT, len);
+    fm::cp_async_commit();
+    fm::cp_async_wait<1>();
+    fm::fence_async_smem();
+    __syncthreads();
+    float g[KT / 8][4];
+    zero(g);
+    fm::fence_operand(g);
+    fm::wgmma_arrive();
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk)
+      fm::wgmma_ss<KT>(g, fm::desc_k<KT>(Cs, 0, kk),
+                       fm::desc_k<KT>(Bs + st * KT * NP, 0, kk), 1);
+    fm::wgmma_commit();
+    fm::wgmma_wait<0>();
+    fm::fence_operand(g);
+    float4* out = reinterpret_cast<float4*>(G + kt * KT * KT);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+      out[j * WG + threadIdx.x] = make_float4(g[j][0], g[j][1], g[j][2], g[j][3]);
+    __syncthreads();  // stage st consumed before it is loaded again
+  }
+}
+
+// Step 1: the local state of one (head, chunk, row),
+//   local[p][n] = sum_j x_j[p] dt_j exp(total - cs_j) B_j[n],
+// as wgmma over the chunk's 64-row key tiles: the weighted x, fp32, is
+// split into hi and lo bf16 A fragments built in registers from the x tile
+// (rows p of the warpgroup, reduction over j), B is read MN-major from its
+// tile.  Also writes the chunk's total sum of dt*A.
+template <int P, int N>
+__global__ void __launch_bounds__(WG, 3) ssd_chunk_state_kernel(Params p) {
+  using Cfg = Bf16Cfg<P, N>;
+  constexpr int PP = Cfg::PP, NP = Cfg::NP;
+  using XT = fm::Tile<KT, PP>;
+  extern __shared__ __align__(1024) uint4 smem_tiles[];
+  fm::bf16* Xs = reinterpret_cast<fm::bf16*>(smem_tiles);  // [2][KT][PP]
+  fm::bf16* Bs = Xs + 2 * KT * PP;                          // [2][KT][NP]
+  float* wts = reinterpret_cast<float*>(Bs + 2 * KT * NP);  // [chunk]
+  float* cs = wts + p.chunk;                                // [chunk]
+
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * p.chunk, len = min(p.chunk, p.S - c0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const fm::bf16* x = static_cast<const fm::bf16*>(p.x) + b * p.x_sb +
+                      h * p.x_sh + static_cast<int64_t>(c0) * p.x_ss;
+  const fm::bf16* Bg = static_cast<const fm::bf16*>(p.Bm) + b * p.b_sb +
+                       static_cast<int64_t>(c0) * p.b_ss;
+
+  fm::load_tile<KT, P, WG, PP>(Xs, x, p.x_ss, 0, len);
+  fm::load_tile<KT, N, WG, NP>(Bs, Bg, p.b_ss, 0, len);
+  fm::cp_async_commit();
+  stage_cumsum(p.dt + b * p.dt_sb + h * p.dt_sh, p.dt_ss, c0, len, p.A[h],
+               wts, cs);
+  const float total = cs[len - 1];
+  for (int i = threadIdx.x; i < len; i += WG)
+    wts[i] = wts[i] * expf(total - cs[i]);  // dt_j exp(total - cs_j)
+  const int64_t bch = (static_cast<int64_t>(b) * p.nc + c) * p.H + h;
+  if (threadIdx.x == 0) p.totals[bch] = total;
+
+  float acc[NP / 8][4];
+  zero(acc);
+  const int p0 = 16 * warp + g;  // this lane's state rows: p0, p0 + 8
+  const int n_tiles = (len + KT - 1) / KT;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_tiles) {
+      fm::load_tile<KT, P, WG, PP>(Xs + (st ^ 1) * KT * PP, x, p.x_ss,
+                                   (kt + 1) * KT, len);
+      fm::load_tile<KT, N, WG, NP>(Bs + (st ^ 1) * KT * NP, Bg, p.b_ss,
+                                   (kt + 1) * KT, len);
+    }
+    fm::cp_async_commit();
+    fm::cp_async_wait<1>();
+    fm::fence_async_smem();
+    __syncthreads();  // tile kt landed; the weights are written
+    const fm::bf16* Xt = Xs + st * KT * PP;
+    // A fragments: rows p0 = 16 warp + g and p0 + 8, columns (key rows)
+    // 16 kk + 2t + {0, 1, 8, 9}; rows at or past len weigh 0.
+    uint32_t a_hi[KT / 16][4], a_lo[KT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      float v[2][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = 16 * kk + 2 * t + (q & 1) + 8 * (q >> 1);
+        const int jc = kt * KT + j;
+        const float w = jc < len ? wts[jc] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int pr = p0 + 8 * r;
+          v[r][q] = __bfloat162float(Xt[XT::at(j, pr >> 3) + (pr & 7)]) * w;
+        }
+      }
+      split2(v[0][0], v[0][1], a_hi[kk][0], a_lo[kk][0]);
+      split2(v[1][0], v[1][1], a_hi[kk][1], a_lo[kk][1]);
+      split2(v[0][2], v[0][3], a_hi[kk][2], a_lo[kk][2]);
+      split2(v[1][2], v[1][3], a_hi[kk][3], a_lo[kk][3]);
+    }
+    const fm::bf16* Bt = Bs + st * KT * NP;
+    fm::fence_operand(acc);
+    fm::wgmma_arrive();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      fm::wgmma_rs<NP>(acc, a_hi[kk], fm::desc_mn<KT>(Bt, kk), 1);
+      fm::wgmma_rs<NP>(acc, a_lo[kk], fm::desc_mn<KT>(Bt, kk), 1);
+    }
+    fm::wgmma_commit();
+    fm::wgmma_wait<0>();
+    fm::fence_operand(acc);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      fm::fence_operand(a_hi[kk]);
+      fm::fence_operand(a_lo[kk]);
+    }
+    __syncthreads();  // stage st consumed before it is loaded again
+  }
+
+  // acc (j, e) is state row p0 + 8 (e >> 1), column 8j + 2t + (e & 1).
+  float* local = p.local + bch * P * N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pr = p0 + 8 * r;
+    if (pr >= P) continue;
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j) {
+      const int n = 8 * j + 2 * t;
+      if (n < N)
+        *reinterpret_cast<float2*>(local + pr * N + n) =
+            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+    }
+  }
+}
+
+// Step 2: the states passed between chunks, for 8 consecutive entries of
+// one (head, row)'s [P, N] state per thread: walking the chunks in order,
+// state_in[c] = running (written over local[c] as hi/lo bf16 groups: the
+// 32 bytes of 8 fp32 entries become 8 hi then 8 lo), running = running *
+// exp(total_c) + local[c].  The running state starts from init or zero and
+// ends in state_out.
+__global__ void __launch_bounds__(PASS_THREADS) ssd_state_pass_kernel(
+    Params p, int PN) {
+  const int gi = blockIdx.x * PASS_THREADS + threadIdx.x;
+  if (8 * gi >= PN) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+  float run[8];
+  if (p.init) {
+    const float4* src = reinterpret_cast<const float4*>(p.init + bh * PN) + 2 * gi;
+    const float4 u = src[0], v = src[1];
+    run[0] = u.x; run[1] = u.y; run[2] = u.z; run[3] = u.w;
+    run[4] = v.x; run[5] = v.y; run[6] = v.z; run[7] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) run[e] = 0.f;
+  }
+  // Chunks in batches of PASS_BATCH: every load of a batch is issued before
+  // its first store, so a thread waits on memory once per batch, not once
+  // per chunk.
+  for (int c0 = 0; c0 < p.nc; c0 += PASS_BATCH) {
+    float4 loc[PASS_BATCH][2];
+    float decay[PASS_BATCH];
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k) {
+      if (c0 + k >= p.nc) break;
+      const int64_t bch = (static_cast<int64_t>(b) * p.nc + c0 + k) * p.H + h;
+      const float4* src = reinterpret_cast<const float4*>(p.local + bch * PN) + 2 * gi;
+      loc[k][0] = src[0];
+      loc[k][1] = src[1];
+      decay[k] = p.totals[bch];
+    }
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k) {
+      if (c0 + k >= p.nc) break;
+      const int64_t bch = (static_cast<int64_t>(b) * p.nc + c0 + k) * p.H + h;
+      uint4* slot = reinterpret_cast<uint4*>(p.local + bch * PN) + 2 * gi;
+      uint4 hi, lo;
+      split2(run[0], run[1], hi.x, lo.x);
+      split2(run[2], run[3], hi.y, lo.y);
+      split2(run[4], run[5], hi.z, lo.z);
+      split2(run[6], run[7], hi.w, lo.w);
+      slot[0] = hi;
+      slot[1] = lo;
+      const float d = expf(decay[k]);
+      const float l[8] = {loc[k][0].x, loc[k][0].y, loc[k][0].z, loc[k][0].w,
+                          loc[k][1].x, loc[k][1].y, loc[k][1].z, loc[k][1].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) run[e] = run[e] * d + l[e];
+    }
+  }
+  float4* out = reinterpret_cast<float4*>(p.state_out + bh * PN) + 2 * gi;
+  out[0] = make_float4(run[0], run[1], run[2], run[3]);
+  out[1] = make_float4(run[4], run[5], run[6], run[7]);
+}
+
+// One 64 x 64 fp32 tile of step 0's C.B^T (in its accumulator order) into
+// shared memory by 16-byte cp.async; the caller commits.
+__device__ __forceinline__ void load_g(float* dst, const float* src) {
+#pragma unroll
+  for (int v = 0; v < KT * KT / 4 / WG; ++v) {
+    const int i = (v * WG + threadIdx.x) * 4;
+    fm::cp_async16(dst + i, src + i, true);
+  }
+}
+
+// Step 3: y of one (head, chunk, row), 64 query rows at a time:
+//   y_i = exp(cs_i) C_i . state_in  +  sum_{j <= i} G_ij exp(cs_i - cs_j) dt_j x_j
+// The block walks its (query tile, key tile <= query tile) pairs as one
+// pipeline: each step's x tile and step 0's C.B^T tile G arrive by
+// cp.async in a two-stage ring while the step before is computed, and a
+// query tile's C tile loads once the tile before has used its own.  At a
+// query tile's first step the carried term is wgmma with C and the
+// state's hi and lo tiles K-major in shared memory; at every step M = G o
+// L o dt is formed in registers (the decay only where j <= i), split into
+// hi and lo A fragments and multiplied by the x tile read MN-major.  After
+// the diagonal step the tile's y leaves through the x stage just consumed.
+template <int P, int N>
+__global__ void __launch_bounds__(WG, 1) ssd_chunk_out_kernel(Params p) {
+  using Cfg = Bf16Cfg<P, N>;
+  constexpr int PP = Cfg::PP, NP = Cfg::NP;
+  using ST = fm::Tile<PP, NP>;
+  extern __shared__ __align__(1024) uint4 smem_tiles[];
+  fm::bf16* Shi = reinterpret_cast<fm::bf16*>(smem_tiles);  // [PP][NP]
+  fm::bf16* Slo = Shi + PP * NP;                            // [PP][NP]
+  fm::bf16* Cs = Slo + PP * NP;                             // [KT][NP]
+  fm::bf16* Xs = Cs + KT * NP;                              // [2][KT][PP]
+  float* Gs = reinterpret_cast<float*>(Xs + 2 * KT * PP);   // [2][KT * KT]
+  float* dts = Gs + 2 * KT * KT;                            // [chunk]
+  float* cs = dts + p.chunk;                                // [chunk]
+
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * p.chunk, len = min(p.chunk, p.S - c0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const fm::bf16* x = static_cast<const fm::bf16*>(p.x) + b * p.x_sb +
+                      h * p.x_sh + static_cast<int64_t>(c0) * p.x_ss;
+  const fm::bf16* Cg = static_cast<const fm::bf16*>(p.Cm) + b * p.c_sb +
+                       static_cast<int64_t>(c0) * p.c_ss;
+  const int64_t y_ss = static_cast<int64_t>(p.H) * P;
+  fm::bf16* y = static_cast<fm::bf16*>(p.y) +
+                (static_cast<int64_t>(b) * p.S + c0) * y_ss + h * P;
+  const int64_t bch = (static_cast<int64_t>(b) * p.nc + c) * p.H + h;
+  const float* G0 = p.cb + (static_cast<int64_t>(b) * p.nc + c) * p.QT *
+                               p.QT * KT * KT;
+
+  // The state entering the chunk: row r's 8-entry group k is 16 bytes of
+  // hi then 16 bytes of lo (step 2).  With step 0's tiles, the first group.
+  {
+    const char* src = reinterpret_cast<const char*>(p.local + bch * P * N);
+    constexpr int CH = NP / 8;
+    for (int i = threadIdx.x; i < PP * CH; i += WG) {
+      const int r = i / CH, k = i % CH;
+      const bool ok = r < P && k < N / 8;
+      const char* at = src + (ok ? (static_cast<int64_t>(r) * N + 8 * k) * 4 : 0);
+      fm::cp_async16(Shi + ST::at(r, k), at, ok);
+      fm::cp_async16(Slo + ST::at(r, k), at + 16, ok);
+    }
+  }
+  fm::load_tile<KT, N, WG, NP>(Cs, Cg, p.c_ss, 0, len);
+  fm::load_tile<KT, P, WG, PP>(Xs, x, p.x_ss, 0, len);
+  load_g(Gs, G0);
+  fm::cp_async_commit();
+  stage_cumsum(p.dt + b * p.dt_sb + h * p.dt_sh, p.dt_ss, c0, len, p.A[h],
+               dts, cs);
+
+  const int n_tiles = (len + KT - 1) / KT;
+  const int r0 = 16 * warp + g;  // this lane's rows in a tile: r0, r0 + 8
+  float acc[PP / 8][4];
+  for (int s = 0, qt = 0, kt = 0;; ++s) {
+    const int st = s & 1;
+    int nq = qt, nk = kt + 1;  // the next step
+    if (nk > nq) {
+      nq = qt + 1;
+      nk = 0;
+    }
+    const bool more = nq < n_tiles;
+    if (more) {
+      fm::load_tile<KT, P, WG, PP>(Xs + (st ^ 1) * KT * PP, x, p.x_ss,
+                                   nk * KT, len);
+      load_g(Gs + (st ^ 1) * KT * KT, G0 + (nq * p.QT + nk) * KT * KT);
+    }
+    fm::cp_async_commit();
+    fm::cp_async_wait<1>();  // all but the next step's tiles have landed
+    fm::fence_async_smem();
+    __syncthreads();
+    const int q0 = qt * KT;
+
+    if (kt == 0) {  // the carried state, scaled by exp(cs_i)
+      zero(acc);
+      fm::fence_operand(acc);
+      fm::wgmma_arrive();
+#pragma unroll
+      for (int kk = 0; kk < NP / 16; ++kk) {
+        fm::wgmma_ss<PP>(acc, fm::desc_k<KT>(Cs, 0, kk),
+                         fm::desc_k<PP>(Shi, 0, kk), 1);
+        fm::wgmma_ss<PP>(acc, fm::desc_k<KT>(Cs, 0, kk),
+                         fm::desc_k<PP>(Slo, 0, kk), 1);
+      }
+      fm::wgmma_commit();
+      fm::wgmma_wait<0>();
+      fm::fence_operand(acc);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = q0 + r0 + 8 * r;
+        const float d = i < len ? expf(cs[i]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < PP / 8; ++j) {
+          acc[j][2 * r] *= d;
+          acc[j][2 * r + 1] *= d;
+        }
+      }
+      if (qt + 1 < n_tiles) {  // C consumed: the next query tile's C
+        __syncthreads();
+        fm::load_tile<KT, N, WG, NP>(Cs, Cg, p.c_ss, q0 + KT, len);
+        fm::cp_async_commit();
+      }
+    }
+
+    // M = G o L o dt for query rows q0 + r0 (+8), keys k0 + 8j + 2t (+1).
+    const int k0 = kt * KT;
+    float m[KT / 8][4];
+    const float4* Gt = reinterpret_cast<const float4*>(Gs + st * KT * KT);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      const float4 v = Gt[j * WG + threadIdx.x];
+      m[j][0] = v.x; m[j][1] = v.y; m[j][2] = v.z; m[j][3] = v.w;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + r0 + 8 * r;
+      const float csi = i < len ? cs[i] : 0.f;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + 8 * j + 2 * t + e;
+          float& v = m[j][2 * r + e];
+          v = (kj <= i && i < len) ? v * expf(csi - cs[kj]) * dts[kj] : 0.f;
+        }
+    }
+    uint32_t a_hi[KT / 16][4], a_lo[KT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      c_to_a_split(a_hi[kk], a_lo[kk], m[2 * kk], m[2 * kk + 1]);
+    const fm::bf16* Xt = Xs + st * KT * PP;
+    fm::fence_operand(acc);
+    fm::wgmma_arrive();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      fm::wgmma_rs<PP>(acc, a_hi[kk], fm::desc_mn<KT>(Xt, kk), 1);
+      fm::wgmma_rs<PP>(acc, a_lo[kk], fm::desc_mn<KT>(Xt, kk), 1);
+    }
+    fm::wgmma_commit();
+    fm::wgmma_wait<0>();
+    fm::fence_operand(acc);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      fm::fence_operand(a_hi[kk]);
+      fm::fence_operand(a_lo[kk]);
+    }
+    __syncthreads();  // stage st consumed
+
+    if (kt == qt) {
+      // The warp's own rows of the consumed x stage take its y for 16-byte
+      // stores; the next step loads into this stage only after the barrier.
+      fm::store_rows<KT, P, PP>(Xs + st * KT * PP, 16 * warp, acc, 1.f, 1.f,
+                                y, y_ss, q0 + 16 * warp, len, lane);
+      __syncthreads();
+    }
+    if (!more) break;
+    qt = nq;
+    kt = nk;
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+// The four steps on `stream`: C.B^T and the local states (independent),
+// the state passing, the outputs.
+template <int P, int N>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  using Cfg = Bf16Cfg<P, N>;
+  const size_t scan = 2 * sizeof(float) * static_cast<size_t>(p.chunk);
+  const size_t s_state = Cfg::SMEM_STATE + scan, s_out = Cfg::SMEM_OUT + scan;
+  int err = set_smem(ssd_cb_kernel<P, N>, Cfg::SMEM_CB);
+  if (!err) err = set_smem(ssd_chunk_state_kernel<P, N>, s_state);
+  if (!err) err = set_smem(ssd_chunk_out_kernel<P, N>, s_out);
+  if (err) return err;
+  ssd_cb_kernel<P, N><<<dim3(p.QT, p.nc, p.B), WG, Cfg::SMEM_CB, stream>>>(p);
+  ssd_chunk_state_kernel<P, N><<<dim3(p.H, p.nc, p.B), WG, s_state, stream>>>(p);
+  constexpr int PN = P * N;
+  const int pass_blocks = (PN / 8 + PASS_THREADS - 1) / PASS_THREADS;
+  ssd_state_pass_kernel<<<dim3(pass_blocks, p.H, p.B), PASS_THREADS, 0,
+                          stream>>>(p, PN);
+  ssd_chunk_out_kernel<P, N><<<dim3(p.H, p.nc, p.B), WG, s_out, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16_shape(const Params& p, int P, int N, cudaStream_t stream) {
+  if (P == 16 && N == 16) return launch_bf16<16, 16>(p, stream);
+  if (P == 32 && N == 64) return launch_bf16<32, 64>(p, stream);
+  if (P == 64 && N == 128) return launch_bf16<64, 128>(p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, Bm, Cm and y).  strides: 10 element
-// strides, x (batch, sequence, head), dt (batch, sequence, head), Bm
-// (batch, sequence) and Cm (batch, sequence).  init may be null.  Returns
-// the CUDA error of the launch (0 on success); launches on `stream` and
-// does not synchronise.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the four
+// tensor-core kernels, 16-byte aligned rows).  strides: 10 element strides,
+// x (batch, sequence, head), dt (batch, sequence, head), Bm (batch,
+// sequence) and Cm (batch, sequence).  init may be null.  workspace: for
+// bfloat16, 256-byte aligned scratch of workspace_bytes, at least
+// Workspace::bytes (float32 takes null).  Returns the CUDA error of the
+// launches (0 on success); launches on `stream` and does not synchronise.
 extern "C" int ssd_scan_fwd(int dtype, const void* x, const float* dt,
                             const float* A, const void* Bm, const void* Cm,
                             const float* init, void* y, float* state_out,
                             int B, int S, int H, int P, int N, int chunk,
-                            const int64_t* strides, void* stream) {
+                            const int64_t* strides, void* workspace,
+                            int64_t workspace_bytes, void* stream) {
   Params p{x, dt, A, Bm, Cm, init, y, state_out, B, S, H, chunk,
            strides[0], strides[1], strides[2],
            strides[3], strides[4], strides[5],
            strides[6], strides[7],
-           strides[8], strides[9]};
+           strides[8], strides[9],
+           nullptr, nullptr, nullptr,
+           (S + chunk - 1) / chunk, (chunk + KT - 1) / KT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_shape<float>(p, P, N, s);
-    case 1: return launch_shape<__nv_bfloat16>(p, P, N, s);
+    case 1: {
+      const Workspace w = workspace_layout(B, S, H, P, N, chunk);
+      if (workspace == nullptr ||
+          static_cast<size_t>(workspace_bytes) < w.bytes)
+        return static_cast<int>(cudaErrorInvalidValue);
+      char* base = static_cast<char*>(workspace);
+      p.local = reinterpret_cast<float*>(base + w.local);
+      p.totals = reinterpret_cast<float*>(base + w.totals);
+      p.cb = reinterpret_cast<float*>(base + w.cb);
+      return launch_bf16_shape(p, P, N, s);
+    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+

@@ -13,7 +13,8 @@ entry: exp of differences of a chunk's cumulative sum of dt*A, summed in
 another order, errs by ~|cumsum| * 2^-24, and over a 256-row chunk that
 reaches ~1e-4 of the largest term where the terms cancel.  The train
 path's kernels (the fused cross-entropy and the three backward kernels)
-state their tolerances below.
+state their tolerances below.  The bf16 SSD kernels split each fp32
+operand into a hi and a lo bf16 product; the tolerances stay those above.
 """
 
 import numpy as np
@@ -167,6 +168,19 @@ GPU_SSD = [  # (B, S, H, P, N, chunk, dtype); the cases of test_kernels.py
     (2, 256, 4, 32, 64, 64, "bfloat16"),
     (1, 64, 16, 64, 128, 64, "bfloat16"),
     (2, 300, 4, 64, 128, 256, "bfloat16"),
+    # bf16 (the chunk-parallel tensor-core kernels) for each float32-only
+    # feature above, and S around the 64-row tiles
+    (1, 200, 4, 64, 128, 64, "bfloat16"),   # ragged inside the last tile
+    (2, 1, 4, 64, 128, 256, "bfloat16"),
+    (1, 63, 4, 64, 128, 256, "bfloat16"),
+    (1, 65, 4, 64, 128, 256, "bfloat16"),
+    (2, 257, 4, 64, 128, 256, "bfloat16"),  # a one-row last chunk
+    (2, 100, 8, 16, 16, 32, "bfloat16"),    # chunk 32, P16/N16, ragged
+    (3, 130, 4, 32, 64, 64, "bfloat16"),    # B > 1, ragged
+    # long chunks (8, 16 and 64 query tiles), ragged in the last chunk
+    (1, 700, 4, 64, 128, 512, "bfloat16"),
+    (2, 1100, 2, 32, 64, 1024, "bfloat16"),
+    (1, 4200, 2, 64, 128, 4096, "bfloat16"),  # MAX_CHUNK
 ]
 SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 
@@ -235,6 +249,41 @@ def test_cuda_ssd_scan_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="chunk"):
         tssd.ssd_scan(x, dt, A, Bm, Cm, chunk=0)
     assert tssd.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bf16_is_deterministic(cuda):
+    """No atomics: two calls on the same inputs give bit-equal y and state."""
+    x, dt, A, Bm, Cm = _ssd_inputs(2, 300, 8, 64, 128, "bfloat16", cuda, True)
+    init = _torch(0.5 * _normal(3, (2, 8, 64, 128)), "float32", cuda)
+    first = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256, initial_state=init)
+    for _ in range(2):
+        again = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256, initial_state=init)
+        assert all(map(torch.equal, first, again))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_refuses_unaligned_bf16_rows(cuda):
+    """The bf16 kernels copy 16-byte chunks: a base pointer or a row stride
+    that breaks that raises before a launch (float32 takes them)."""
+    B, S, H, P, N = 1, 64, 4, 16, 16
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, "bfloat16", cuda, False)
+    flat = torch.zeros(B * S * N + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(B, S, N)
+    wide = torch.zeros(B, S, N + 4, device=cuda, dtype=torch.bfloat16)[..., :N]
+    before = tssd.launches
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            tssd.ssd_scan(x, dt, A, bad, Cm, chunk=32)
+        with pytest.raises(ValueError, match="16-byte"):
+            tssd.ssd_scan(x, dt, A, Bm, bad, chunk=32)
+    with pytest.raises(ValueError, match="16-byte"):
+        xs = torch.zeros(x.numel() + 1, device=cuda,
+                         dtype=torch.bfloat16)[1:].view(x.shape)
+        tssd.ssd_scan(xs, dt, A, Bm, Cm, chunk=32)
+    assert tssd.launches == before
+    tssd.ssd_scan(x.float(), dt, A, wide.float(), Cm.float(), chunk=32)
+    assert tssd.launches == before + 1
 
 
 # ------------------------------------------------------- the train path's
