@@ -41,8 +41,18 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 full width cut to 8 of its 28 layers (bf16, AdamW), batch 2
                 x 4096 tokens, one warm-up step and three timed steps, then
                 one traced step for the device's idle share;
-7. the ``{"train": ...}`` and ``{"kernels": [...]}`` summary lines, then the
-   ``{"ok": true, ...}`` line.
+7. engine    -- the lockstep fifo engine (``repro_torch.core.simtorch``) at
+                the repo's batched-bench setup: each of the six registered
+                scenarios at full size on its registered topology, and
+                ``mixed`` on ``fat_tree``, seeds 0-19 as one batch on the
+                card (cold and warm walls, host reads per run), held lane
+                by lane to the same batch on the CPU (JCT/CCT and makespan
+                within 1e-6, equal events); then every one of those cells
+                through ``repro_torch.experiments.run_cells_batched`` on
+                the card, and one warm ``pipe_serve`` batch traced
+                (``torch.profiler``: idle share, kernels per step);
+8. the ``{"train": ...}``, ``{"kernels": [...]}`` and ``{"engine": [...]}``
+   summary lines, then the ``{"ok": true, ...}`` line.
 
 Each run of a main path (phases 5 and 6) zeroes the kernels' launch counts
 just before it and reads them just after.
@@ -115,6 +125,14 @@ REF_TRAIN_STEPS = 3
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 3
 # Copies of a timed kernel's inputs: four prefill-sized sets exceed the L2.
 COPIES = {"prefill": 4, "decode": 1}
+# The engine phase: the batched-bench setup of the repo's simulator-core
+# benchmark (every registered scenario at full size, 20 seeds as one batch),
+# plus ``mixed`` on ``fat_tree`` (paths of up to six links).  Card lanes
+# against CPU lanes: the CPU tests' tolerance against the numpy core.
+ENGINE_SEEDS = 20
+ENGINE_EXTRA = (("mixed", "fat_tree"),)
+ENGINE_TOL = 1e-6
+ENGINE_STEPS_PER_SYNC = 16   # lockstep steps between two reads of the flags
 
 
 def fail(msg: str) -> None:
@@ -176,7 +194,7 @@ def phase_device() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    print("[1/7] device")
+    print("[1/8] device")
     print(smi)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
@@ -276,7 +294,7 @@ def phase_build() -> dict[str, dict]:
     from repro_torch.kernels import fused_ce as ce
     from repro_torch.kernels import rmsnorm as rn
 
-    print("[2/7] build")
+    print("[2/8] build")
     t0 = time.perf_counter()
     build.build()
     t_nvcc = time.perf_counter() - t0
@@ -842,7 +860,7 @@ def _ce_entries(cfg) -> list[dict]:
 
 
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
-    print("[3/7] kernels against their plain versions")
+    print("[3/8] kernels against their plain versions")
     fwd = _flash_entry(cfg)
     bwd = _flash_bwd_entry(cfg, fwd)
     fwd["build_hd128"] = {"flash_fwd_bf16_kernel":
@@ -1014,7 +1032,7 @@ def phase_reference() -> None:
     from repro_torch.models import get_model
     from repro_torch.tree import tree_map
 
-    print("[4/7] reference: float32 models on the card vs the CPU")
+    print("[4/8] reference: float32 models on the card vs the CPU")
     for arch, overrides, S in REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
         cpu, gpu = get_model(cfg, device="cpu"), get_model(cfg, device="cuda")
@@ -1049,7 +1067,7 @@ def phase_serve(arch: str, prompt: int) -> dict:
     from repro_torch.tree import leaves
 
     cfg = get_config(arch)
-    print(f"[5/7] serve {cfg.name}: {cfg.n_layers} layers, d_model "
+    print(f"[5/8] serve {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.dtype}, batch {BATCH}, prompt {prompt}, "
           f"gen {GEN}")
     model = get_model(cfg, device="cuda")
@@ -1115,7 +1133,7 @@ def phase_train() -> dict:
     full = get_config("qwen2-7b")
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"[6/7] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+    print(f"[6/8] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, batch "
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, AdamW, {TRAIN_STEPS} timed steps")
     t = train.setup(cfg, steps=TRAIN_STEPS + 2, batch=TRAIN_BATCH,
@@ -1192,6 +1210,127 @@ def phase_train() -> dict:
     return stats
 
 
+def _lane_diff(a, b) -> float:
+    """Largest |difference| of two lanes' per-job JCT/CCT and makespans."""
+    if set(a.jct) != set(b.jct) or set(a.cct) != set(b.cct):
+        fail("lanes with different jobs")
+    return max([abs(a.makespan - b.makespan)]
+               + [abs(a.jct[n] - b.jct[n]) for n in b.jct]
+               + [abs(a.cct[n] - b.cct[n]) for n in b.cct])
+
+
+def _engine_row(scenario: str, topology: str, lanes: list) -> tuple[dict, list]:
+    from repro_torch.core import simtorch
+
+    walls, reads = [], []
+    for _ in range(2):                      # cold, then warm
+        torch.cuda.synchronize()
+        before = simtorch.sync_count()
+        t0 = time.perf_counter()
+        card = simtorch.run_fifo_batch(
+            lanes, steps_per_sync=ENGINE_STEPS_PER_SYNC, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        reads.append(simtorch.sync_count() - before)
+    t0 = time.perf_counter()
+    cpu = simtorch.run_fifo_batch(
+        lanes, steps_per_sync=ENGINE_STEPS_PER_SYNC, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a.events != b.events:
+            fail(f"engine {scenario}@{topology} lane {i}: {a.events} events "
+                 f"on the card, {b.events} on the CPU")
+    diff = max(_lane_diff(a, b) for a, b in zip(card, cpu))
+    if not diff <= ENGINE_TOL:
+        fail(f"engine {scenario}@{topology}: card lanes differ from the CPU "
+             f"by {diff:.3e} > {ENGINE_TOL:g}")
+    events = max(r.events for r in card)
+    steps = -(-events // ENGINE_STEPS_PER_SYNC) * ENGINE_STEPS_PER_SYNC
+    row = {"scenario": scenario, "topology": topology, "lanes": len(lanes),
+           "flows_padded": max(p.flow_node.size for p in lanes),
+           "max_lane_events": events, "steps_run": steps,
+           "card_cold_s": walls[0], "card_warm_s": walls[1],
+           "card_warm_ms_per_step": 1e3 * walls[1] / steps,
+           "cpu_s": cpu_wall, "host_reads_per_run": reads[1],
+           "max_abs_diff_vs_cpu": diff}
+    print(f"  {scenario}@{topology}: {len(lanes)} lanes, {row['flows_padded']}"
+          f" flows padded, {events} events ({steps} steps); card cold "
+          f"{walls[0]:.3f} s, warm {walls[1]:.3f} s "
+          f"({row['card_warm_ms_per_step']:.2f} ms/step), CPU {cpu_wall:.3f} s;"
+          f" {reads[1]} host reads; max |diff| vs CPU {diff:.3e}")
+    return row, cpu
+
+
+def phase_engine() -> list[dict]:
+    from repro_torch.appdag import SCENARIO_TOPOLOGY, SCENARIOS, build_scenario
+    from repro_torch.core import simtorch
+    from repro_torch.experiments import run_cells_batched
+    from repro_torch.launch import profile_serve
+
+    cases = [(name, SCENARIO_TOPOLOGY.get(name, "big_switch"))
+             for name in sorted(SCENARIOS)] + list(ENGINE_EXTRA)
+    print(f"[7/8] engine: fifo lockstep batches of {ENGINE_SEEDS} seeds at "
+          f"full size, card vs CPU (float64)")
+    rows, cpu_lanes, packed = [], {}, {}
+    for scenario, topology in cases:
+        lanes = [simtorch.pack_instance(*build_scenario(
+                     scenario, seed=s, topology=topology))
+                 for s in range(ENGINE_SEEDS)]
+        row, cpu_lanes[scenario, topology] = _engine_row(scenario, topology,
+                                                         lanes)
+        rows.append(row)
+        packed[scenario, topology] = lanes
+
+    # The entry point a sweep calls: every cell above, grouped and batched.
+    @dataclasses.dataclass(frozen=True)
+    class Cell:
+        scenario: str
+        policy: str
+        topology: str
+        seed: int
+        fault_intensity: float = 0.0
+
+    cells = [Cell(sc, "fifo", topo, s) for sc, topo in cases
+             for s in range(ENGINE_SEEDS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = run_cells_batched(cells, device="cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    worst = 0.0
+    for cell, rec in zip(cells, recs):
+        lane = cpu_lanes[cell.scenario, cell.topology][cell.seed]
+        res = rec["result"]
+        if (rec["engine"], rec["seed"], rec["scenario"], rec["topology"]) != (
+                "simtorch", cell.seed, cell.scenario, cell.topology):
+            fail(f"run_cells_batched record out of order: {rec}")
+        if res["events"] != lane.events:
+            fail(f"run_cells_batched {cell}: {res['events']} events, the CPU "
+                 f"lane {lane.events}")
+        worst = max(worst, abs(res["makespan"] - lane.makespan),
+                    *(abs(res["jct"][n] - lane.jct[n]) for n in lane.jct),
+                    *(abs(res["cct"][n] - lane.cct[n]) for n in lane.cct))
+    if not worst <= ENGINE_TOL:
+        fail(f"run_cells_batched on the card differs from the CPU lanes by "
+             f"{worst:.3e}")
+    print(f"  run_cells_batched: {len(cells)} cells in {len(cases)} batches "
+          f"on the card in {sweep_s:.3f} s (building included); max |diff| "
+          f"vs the CPU lanes {worst:.3e}")
+
+    lanes = packed["pipe_serve", "big_switch"]
+    trace = profile_serve.profile(lambda: simtorch.run_fifo_batch(
+        lanes, steps_per_sync=ENGINE_STEPS_PER_SYNC, device="cuda"))
+    row = next(r for r in rows if r["scenario"] == "pipe_serve")
+    row["traced_run"] = trace
+    row["kernels_per_step"] = trace["kernels"] / row["steps_run"]
+    print(f"  traced warm pipe_serve batch: wall {trace['wall_ms']:.1f} ms, "
+          f"device busy {trace['device_busy_ms']:.1f} ms, idle share "
+          f"{trace['idle_share']:.3f}, {trace['kernels']} kernels "
+          f"({row['kernels_per_step']:.1f} per lockstep step) and "
+          f"{trace['copies']} copies")
+    return rows
+
+
 def main() -> None:
     phase_device()
     sys.path.insert(0, str(SRC))
@@ -1205,6 +1344,7 @@ def main() -> None:
     serves = {arch: phase_serve(arch, prompt) for arch, prompt in SERVES}
     torch.cuda.empty_cache()
     train_stats = phase_train()
+    engine = phase_engine()
     paths = {**{f"serve {arch}": st["launches"] for arch, st in serves.items()},
              f"train {train_stats['arch']}": train_stats["launches"]}
     for entry in kernels:
@@ -1213,10 +1353,11 @@ def main() -> None:
             fail(f"{entry['name']} launched on no main path")
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    print("[7/7] summary")
+    print("[8/8] summary")
     print(json.dumps({"serve": serves}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"engine": engine}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

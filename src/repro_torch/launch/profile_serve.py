@@ -55,11 +55,12 @@ def _group(name: str) -> str:
 
 
 def _summary(prof, wall_s: float) -> dict:
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
         raise RuntimeError("the trace holds no device events")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, cur_start, cur_end = 0.0, *spans[0]
     for start, end in spans[1:]:
         if start > cur_end:
@@ -70,14 +71,14 @@ def _summary(prof, wall_s: float) -> dict:
     busy += cur_end - cur_start
     groups: dict[str, float] = defaultdict(float)
     names: dict[str, float] = defaultdict(float)
-    for e in kernels:
+    for e in events:
         groups[_group(e.name)] += e.time_range.elapsed_us()
         names[e.name[:80]] += e.time_range.elapsed_us()
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     wall_ms, busy_ms = wall_s * 1e3, busy / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "kernels": len(kernels),
+            "kernels": len(events) - len(copies), "copies": len(copies),
             "device_ms_by_group": {k: v / 1e3 for k, v in sorted(groups.items())},
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
 

@@ -485,3 +485,34 @@ def test_cuda_train_step_matches_cpu(cuda):
     s_cpu, m_cpu = t_cpu.train_step(s_cpu, batch)
     s_gpu, m_gpu = t_gpu.train_step(s_gpu, batch)
     assert abs(float(m_cpu["loss"]) - float(m_gpu["loss"])) <= 1e-4
+
+
+ENGINE_CASES = [  # (scenario, topology): every registered one, and fat_tree
+    ("dense_dp", None), ("fb_shuffle", None), ("mixed", None),
+    ("mixed_oversub_3to1", None), ("moe_ep", None), ("pipe_serve", None),
+    ("mixed", "fat_tree"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario,topology", ENGINE_CASES)
+def test_cuda_engine_lanes_match_cpu(cuda, scenario, topology):
+    """The lockstep fifo engine on the card against the same lanes on the
+    CPU (quick scenarios, seeds 0-4): per-job JCT/CCT and makespan within
+    1e-6 (the CPU tests' tolerance against the numpy core; the card's
+    cumsum associates float sums differently), equal lockstep events."""
+    from repro_torch.appdag import build_scenario
+    from repro_torch.core.simtorch import pack_instance, run_fifo_batch
+
+    lanes = [pack_instance(*build_scenario(scenario, seed=s, quick=True,
+                                           topology=topology))
+             for s in range(5)]
+    on_card = run_fifo_batch(lanes, device=cuda)
+    on_cpu = run_fifo_batch(lanes, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.events == b.events
+        assert abs(a.makespan - b.makespan) <= 1e-6
+        for key in ("jct", "cct"):
+            x, y = getattr(a, key), getattr(b, key)
+            assert set(x) == set(y)
+            assert max(abs(x[n] - y[n]) for n in y) <= 1e-6
