@@ -24,23 +24,34 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 and of the bf16 SSD scan bit-equal; the SSD scan's CUDA
                 kernels per call and each one's device time (a
                 ``torch.profiler`` trace of ten calls) and the scratch one
-                call allocates (``torch.cuda.max_memory_allocated``);
+                call allocates (``torch.cuda.max_memory_allocated``); then
+                every kernel of the mixtral paths checked again at
+                mixtral-8x22b's widths;
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
-                tokens, logits within 1e-3 (dense qwen2, Mamba-2 with the
-                real SSD head sizes at a ragged prompt, the jamba hybrid
-                without experts); two float32 qwen2 smoke models trained
-                three steps on the card and on the CPU from the same
-                parameters (gradients, losses, launch counts); the train
-                loop on the card, resumed from its checkpoint;
+                tokens, logits within 1e-3 (dense qwen2, mixtral with a
+                capacity that drops tokens, Mamba-2 with the real SSD head
+                sizes at a ragged prompt, the jamba hybrid without and with
+                experts; the MoE models' dropped (token, choice) pairs
+                equal on both); three float32 smoke models (two qwen2, the
+                dropping mixtral) trained three steps on the card and on
+                the CPU from the same parameters (gradients, losses, ce
+                and aux, launch counts); the train loop on the card,
+                resumed from its checkpoint;
 5. serve     -- through ``repro_torch.launch.serve``: qwen2-7b at full width
                 (28 layers, bf16, batch 4, prompt 512, 32 tokens), then
                 mamba2-370m at full width and depth (48 layers, bf16, batch
-                4, prompt 2048, 32 tokens);
-6. train     -- through ``repro_torch.launch.train.setup``: qwen2-7b at
-                full width cut to 8 of its 28 layers (bf16, AdamW), batch 2
-                x 4096 tokens, one warm-up step and three timed steps, then
-                one traced step for the device's idle share;
+                4, prompt 2048, 32 tokens), then mixtral-8x22b at full width
+                cut to 8 of its 56 layers (bf16, batch 4, prompt 512, 32
+                tokens; the prefill's dropped pairs); each followed by a
+                traced prefill and four decode steps
+                (``profile_serve.profile_generate``);
+6. train     -- through ``repro_torch.launch.train.setup``, batch 2 x 4096
+                tokens, AdamW, one warm-up step and three timed steps, then
+                one traced step for the device's idle share: qwen2-7b at
+                full width cut to 8 of its 28 layers, then mixtral-8x22b at
+                full width cut to 1 of its 56 (model FLOPs of the active
+                parameters, k of E experts per token);
 7. engine    -- the lockstep fifo engine (``repro_torch.core.simtorch``) at
                 the repo's batched-bench setup: each of the six registered
                 scenarios at full size on its registered topology, and
@@ -51,8 +62,8 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 through ``repro_torch.experiments.run_cells_batched`` on
                 the card, and one warm ``pipe_serve`` batch traced
                 (``torch.profiler``: idle share, kernels per step);
-8. the ``{"train": ...}``, ``{"kernels": [...]}`` and ``{"engine": [...]}``
-   summary lines, then the ``{"ok": true, ...}`` line.
+8. the ``{"serve": ...}``, ``{"train": ...}``, ``{"kernels": [...]}`` and
+   ``{"engine": [...]}`` summary lines, then the ``{"ok": true, ...}`` line.
 
 Each run of a main path (phases 5 and 6) zeroes the kernels' launch counts
 just before it and reads them just after.
@@ -63,6 +74,7 @@ line.  Weights are random, drawn on the card from a fixed seed.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -84,8 +96,12 @@ FP32_FLOPS = 67e12
 
 SEED = 0
 BATCH, GEN = 4, 32
-SERVES = (("qwen2-7b", 512), ("mamba2-370m", 2048))   # (arch, prompt)
+# (arch, prompt, layers).  mixtral-8x22b cut to 8 of its 56 layers: 20.4 B
+# parameters, 40.9 GB in bf16, where 56 layers would take ~282 GB.
+SERVES = (("qwen2-7b", 512, 28), ("mamba2-370m", 2048, 48),
+          ("mixtral-8x22b", 512, 8))
 PROMPT = SERVES[0][1]
+PROFILE_DECODE_STEPS = 4   # decode steps of each serve cell's traced run
 RMSNORM_TOL = 2e-2   # bf16: both round one fp32 result to bf16
 FLASH_TOL = {torch.bfloat16: 2e-2,   # bf16 output; plain version rounds p
              torch.float32: 2e-5}    # same sums in another order
@@ -118,11 +134,15 @@ LSE_TOL = 2e-5
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-4
 REF_TRAIN_STEPS = 3
-# The full-width train run: qwen2-7b cut to 8 of 28 layers (the state of 28
-# layers, 7.6 B parameters at 12 bytes each, exceeds the card's 80 GB),
-# batch 2 x 4096 (the repo's train_4k sequence; its global batch of 256 cut
-# to 2), a warm-up step and three timed steps.
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 3
+# The full-width train runs, (arch, layers): qwen2-7b cut to 8 of 28 layers
+# (the state of 28 layers, 7.6 B parameters at 12 bytes each, exceeds the
+# card's 80 GB); mixtral-8x22b cut to 1 of 56 (2.91 B parameters, 34.9 GB of
+# state; two layers' 65 GB plus AdamW's fp32 temporaries on its
+# [8, 6144, 16384] expert leaves come too close to 80 GB).  Batch 2 x 4096
+# (the repo's train_4k sequence; its global batch of 256 cut to 2), a
+# warm-up step and three timed steps.
+TRAINS = (("qwen2-7b", 8), ("mixtral-8x22b", 1))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
 # Copies of a timed kernel's inputs: four prefill-sized sets exceed the L2.
 COPIES = {"prefill": 4, "decode": 1}
 # The engine phase: the batched-bench setup of the repo's simulator-core
@@ -859,7 +879,88 @@ def _ce_entries(cfg) -> list[dict]:
     return [fwd, bwd]
 
 
+def _checks_at(cfg) -> dict[str, dict]:
+    """Every kernel that ``cfg``'s serve and train paths run, against its
+    plain version at the shapes those paths give it (checks only; the timed
+    entries are at qwen2-7b's): RMSNorm at the prefill, decode and train
+    rows and its backward at the train rows; flash attention at the prefill
+    and, with its backward, at the train shape, with ``cfg``'s window; the
+    cross-entropy and its backward at the train rows and ``cfg``'s
+    vocabulary.  Returns each kernel's largest error and shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ce as ce
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    D, eps, W = cfg.d_model, cfg.norm_eps, cfg.sliding_window
+    H, KV, hd, V = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.vocab_size
+    bf16 = torch.bfloat16
+    out: dict[str, dict] = {}
+
+    def record(name: str, err: float, shape) -> None:
+        if err >= out.get(name, {}).get("max_abs_err", -1.0):
+            out[name] = {"max_abs_err": err, "shape": list(shape)}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(bf16)
+
+    scale = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf16)
+    for rows in ((BATCH, PROMPT), (BATCH, 1), (TRAIN_BATCH, TRAIN_SEQ)):
+        x = randn(*rows, D)
+        record("rmsnorm", check(
+            f"{cfg.name} rmsnorm {list(x.shape)} bf16",
+            ops.rmsnorm(x, scale, eps), ref.rmsnorm_ref(x, scale, eps),
+            RMSNORM_TOL), x.shape)
+    dy = randn(*x.shape)
+    label = f"{cfg.name} rmsnorm_bwd {list(x.shape)} bf16"
+    record("rmsnorm_bwd", _check_grads(
+        label, rn.rmsnorm_bwd(x, scale, dy, eps),
+        _grads(lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy,
+               torch.float32), BWD_TOL[bf16], ("x", "scale")), x.shape)
+    del x, dy
+
+    def plain(q, k, v):
+        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal=True,
+                                       window=W).transpose(1, 2)
+
+    for B, S in ((BATCH, PROMPT), (TRAIN_BATCH, TRAIN_SEQ)):
+        q, k, v = (randn(B, S, n, hd) for n in (H, KV, KV))
+        label = (f"{cfg.name} flash_attention B{B} S{S} H{H} KV{KV} hd{hd} "
+                 f"bf16 causal window={W}")
+        o, lse = fa.flash_attention(q, k, v, window=W, return_lse=True)
+        record("flash_attention", check(label, o, plain(q, k, v),
+                                        FLASH_TOL[bf16]), q.shape)
+        if S != TRAIN_SEQ:
+            continue
+        dout = randn(*q.shape)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, dout, window=W)
+        record("flash_attention_bwd", _check_grads(
+            label + " bwd", got, _grads(plain, (q, k, v), dout, torch.float32),
+            BWD_TOL[bf16], "qkv"), q.shape)
+        del q, k, v, o, lse, dout, got
+
+    T = TRAIN_BATCH * TRAIN_SEQ
+    logits = (2 * torch.randn(T, V, generator=g, device="cuda")).to(bf16)
+    labels = torch.randint(0, V, (T,), generator=g, device="cuda")
+    labels[::7] = -1
+    gr = torch.rand(T, generator=g, device="cuda")
+    label = f"{cfg.name} fused_cross_entropy [{T}, {V}] bf16"
+    nll, lse = ce.fused_cross_entropy(logits, labels)
+    record("fused_cross_entropy", check(
+        label, nll, ref.cross_entropy_ref(logits, labels), CE_TOL[bf16]),
+        logits.shape)
+    record("fused_cross_entropy_bwd", _check_grads(
+        label + " bwd", (ce.fused_cross_entropy_bwd(logits, labels, lse, gr),),
+        _grads(lambda x: ref.cross_entropy_ref(x, labels), (logits,), gr,
+               torch.float32), BWD_TOL[bf16], ("logits",)), logits.shape)
+    return out
+
+
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
+    from repro_torch.configs import get_config
+
     print("[3/8] kernels against their plain versions")
     fwd = _flash_entry(cfg)
     bwd = _flash_bwd_entry(cfg, fwd)
@@ -872,6 +973,10 @@ def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
         "ssd_cb_kernel", "ssd_chunk_state_kernel", "ssd_chunk_out_kernel")}
     entries = [fwd, bwd, _rmsnorm_entry(cfg), _rmsnorm_bwd_entry(cfg), ssd,
                *_ce_entries(cfg)]
+    torch.cuda.empty_cache()
+    moe_cfg = get_config("mixtral-8x22b")
+    for name, c in _checks_at(moe_cfg).items():
+        next(e for e in entries if e["name"] == name)[moe_cfg.name] = c
     torch.cuda.empty_cache()
     return entries
 
@@ -916,12 +1021,42 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
 REFERENCE_MODELS = (  # (arch, smoke overrides, prompt)
     ("qwen2-7b", {"head_dim": 128, "d_model": 256, "n_kv_heads": 2}, 70),
     ("qwen2-7b", {"sliding_window": 32, "n_kv_heads": 2}, 100),
+    # a capacity that binds: 17 slots per expert and row for ~35 picks
+    ("mixtral-8x22b", {"capacity_factor": 0.5}, 70),
     # the real SSD head sizes; 100 = 64 + a partial chunk of 36
     ("mamba2-370m", {"ssm_head_dim": 64, "ssm_state": 128, "ssm_chunk": 64},
      100),
     ("jamba-1.5-large-398b", {"n_experts": 0}, 70),
+    ("jamba-1.5-large-398b", {}, 70),
 )
-TRAIN_REFERENCE_MODELS = REFERENCE_MODELS[:2]   # the dense ones
+TRAIN_REFERENCE_MODELS = REFERENCE_MODELS[:3]   # the attention-only ones
+
+
+@contextlib.contextmanager
+def _router_logits():
+    """Collects the router logits of every MoE FFN the model calls inside
+    the block (a list, in call order)."""
+    from repro_torch.models import transformer
+
+    seen, moe_ffn = [], transformer.moe_ffn
+
+    def recording(p, x, cfg):
+        y, logits = moe_ffn(p, x, cfg)
+        seen.append(logits)
+        return y, logits
+
+    transformer.moe_ffn = recording
+    try:
+        yield seen
+    finally:
+        transformer.moe_ffn = moe_ffn
+
+
+def _dropped(logits: list, cfg) -> int:
+    """(token, choice) pairs over their expert's capacity in these calls."""
+    from repro_torch.models import moe
+
+    return sum(int((~moe.route(x, cfg).keep).sum()) for x in logits)
 
 
 def _to(device):
@@ -939,9 +1074,9 @@ def _loss_grads(model, params, batch: dict, device) -> tuple:
 
 
 def _reference_train() -> None:
-    """Two float32 qwen2 smoke models: one batch's gradients and three train
-    steps on the card (kernels) against the CPU (plain versions), from the
-    same parameters."""
+    """Two float32 qwen2 smoke models and the dropping mixtral one: one
+    batch's gradients and three train steps on the card (kernels) against
+    the CPU (plain versions), from the same parameters."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -981,13 +1116,14 @@ def _reference_train() -> None:
             b = t_cpu.pipeline.batch_at(step)
             s_cpu, m_cpu = t_cpu.train_step(s_cpu, b)
             s_gpu, m_gpu = t_gpu.train_step(s_gpu, b)
-            lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
-            ok = abs(lc - lg) <= TRAIN_LOSS_TOL
-            print(f"  check {label} step {step}: loss card {lg:.6f} cpu "
-                  f"{lc:.6f} |diff| {abs(lc - lg):.2e} "
-                  f"{'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                fail(f"{label}: losses differ at step {step}")
+            for key in ("loss", "ce", "aux"):
+                lc, lg = float(m_cpu[key]), float(m_gpu[key])
+                ok = abs(lc - lg) <= TRAIN_LOSS_TOL
+                print(f"  check {label} step {step}: {key} card {lg:.6f} cpu "
+                      f"{lc:.6f} |diff| {abs(lc - lg):.2e} "
+                      f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"{label}: {key} differs at step {step}")
         counts = ops.launch_counts()
         want = _expected_train_launches(cfg, REF_TRAIN_STEPS)
         if counts != want:
@@ -1041,12 +1177,24 @@ def phase_reference() -> None:
         tokens = torch.randint(0, cfg.vocab_size, (2, S),
                                generator=torch.Generator().manual_seed(SEED))
         max_seq = S + 4
-        lc, cc = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq)
+        with _router_logits() as r_cpu:
+            lc, cc = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq)
         ops.reset_launch_counts()
-        lg, cg = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq)
+        with _router_logits() as r_gpu:
+            lg, cg = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq)
         counts, want = ops.launch_counts(), _expected_launches(cfg, 0)
         if counts != want:
             fail(f"{cfg.name} prefill launches {counts}, expected {want}")
+        if cfg.is_moe:
+            d_cpu, d_gpu = _dropped(r_cpu, cfg), _dropped(r_gpu, cfg)
+            pairs = len(r_gpu) * tokens.numel() * cfg.experts_per_token
+            print(f"  {cfg.name} {overrides} prefill: {d_gpu} of {pairs} "
+                  f"(token, choice) pairs dropped on the card, {d_cpu} on the "
+                  f"CPU")
+            if d_cpu != d_gpu:
+                fail(f"{cfg.name}: the card and the CPU drop different pairs")
+            if cfg.capacity_factor < 1 and not d_gpu:
+                fail(f"{cfg.name}: a binding capacity dropped no pair")
         for step in range(4):
             check(f"reference {cfg.name} {overrides} S={S} step {step} "
                   "logits", lg.cpu(), lc, REF_LOGIT_TOL)
@@ -1059,17 +1207,19 @@ def phase_reference() -> None:
     _reference_loop()
 
 
-def phase_serve(arch: str, prompt: int) -> dict:
+def phase_serve(arch: str, prompt: int, layers: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
+    from repro_torch.launch import profile_serve, serve
     from repro_torch.models import get_model
+    from repro_torch.models.moe import capacity
     from repro_torch.tree import leaves
 
-    cfg = get_config(arch)
-    print(f"[5/8] serve {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype}, batch {BATCH}, prompt {prompt}, "
-          f"gen {GEN}")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    print(f"[5/8] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.dtype}, batch {BATCH}, prompt {prompt},"
+          f" gen {GEN}")
     model = get_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -1078,7 +1228,8 @@ def phase_serve(arch: str, prompt: int) -> dict:
     print(f"  init {n_params / 1e9:.3f} B parameters on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     tokens = serve.prompt_tokens(cfg.vocab_size, BATCH, prompt, SEED, "cuda")
-    serve.generate(model, params, tokens, 2)       # warm-up: cuBLAS, allocator
+    with _router_logits() as router:    # warm-up: cuBLAS, allocator
+        serve.generate(model, params, tokens, 2)
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1087,7 +1238,8 @@ def phase_serve(arch: str, prompt: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     steps = r["decode_steps"]
-    stats = {"prompt": prompt,
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
+             "params_b": n_params / 1e9, "prompt": prompt,
              "prefill_ms": r["prefill_s"] * 1e3,
              "decode_ms_per_step": r["decode_s"] * 1e3 / steps,
              "decode_tok_s": BATCH * steps / r["decode_s"],
@@ -1096,6 +1248,17 @@ def phase_serve(arch: str, prompt: int) -> dict:
     print(f"  decode: {steps} steps, {stats['decode_ms_per_step']:.3f} ms/step, "
           f"{stats['decode_tok_s']:.1f} tok/s")
     print(f"  peak memory {stats['peak_mem_gb']:.2f} GB; launches {counts}")
+    if cfg.is_moe:
+        # The warm-up's prefill routes the same tokens through the same
+        # weights as the timed one.
+        prefill = [x for x in router if x.shape[1] == prompt]
+        stats["moe_prefill"] = {
+            "capacity": capacity(cfg, prompt),
+            "pairs": len(prefill) * BATCH * prompt * cfg.experts_per_token,
+            "dropped_pairs": _dropped(prefill, cfg)}
+        print(f"  prefill routing: capacity {capacity(cfg, prompt)} per row "
+              f"and expert; {stats['moe_prefill']['dropped_pairs']} of "
+              f"{stats['moe_prefill']['pairs']} (token, choice) pairs dropped")
 
     # Flash attention and the SSD scan launch on prefill only, so their
     # totals equal one prefill's: none ran in decode.
@@ -1110,28 +1273,56 @@ def phase_serve(arch: str, prompt: int) -> dict:
     if not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
         fail("token ids out of range")
     print(f"  tokens[0, :8] = {seq[0, :8].tolist()}")
+
+    stats["traced"] = profile_serve.profile_generate(model, params, tokens,
+                                                     PROFILE_DECODE_STEPS)
+    for phase, tr in stats["traced"].items():
+        print(f"  traced {phase}"
+              f"{f' ({PROFILE_DECODE_STEPS} steps)' if phase == 'decode' else ''}"
+              f": wall {tr['wall_ms']:.2f} ms, device busy "
+              f"{tr['device_busy_ms']:.2f} ms, idle share {tr['idle_share']:.3f}, "
+              f"{tr['kernels']} kernels; by group "
+              + ", ".join(f"{k} {v:.2f} ms"
+                          for k, v in tr["device_ms_by_group"].items()))
     return stats
 
 
-def _train_model_flops(cfg, n_params: int, embed: int) -> tuple[float, float]:
-    """Model FLOPs of one train step: 6 per parameter (all but the input
-    embedding, a gather) per token, and three times the forward's causal
+def _train_model_flops(cfg, params) -> tuple[float, float, float]:
+    """Model FLOPs of one train step: 6 per active parameter per token (all
+    but the input embedding, a gather; of a MoE layer's experts, the k of E
+    each token is routed to), and three times the forward's causal
     attention (4 * B * H * hd per visible query-key pair per layer).
-    Returns (total, attention)."""
+    Returns (total, attention, expert products as executed): each expert
+    runs its capacity buffer of C rows per sequence whatever the routing,
+    6 FLOPs per expert parameter per buffer row (the recompute not
+    counted), about the capacity factor times the active expert FLOPs."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.tree import leaves_with_path
+
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    dense = experts = 0
+    for path, p in leaves_with_path(params):
+        if "moe" in path and path[-1] != "router":
+            experts += p.numel()
+        elif path != ("embed",):
+            dense += p.numel()
     attn = 3 * cfg.n_layers * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * (
         _flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.sliding_window))
-    return 6 * (n_params - embed) * tokens + attn, attn
+    if not experts:
+        return 6 * dense * tokens + attn, attn, 0.0
+    active = dense + experts * cfg.experts_per_token / cfg.n_experts
+    executed = 6 * experts * TRAIN_BATCH * capacity(cfg, TRAIN_SEQ)
+    return 6 * active * tokens + attn, attn, executed
 
 
-def phase_train() -> dict:
+def phase_train(arch: str, layers: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import profile_serve, train
     from repro_torch.tree import leaves, tree_map
 
-    full = get_config("qwen2-7b")
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"[6/8] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, batch "
@@ -1174,8 +1365,7 @@ def phase_train() -> dict:
     adamw_ms = time_ms(lambda: t.optimizer.update(
         grads, state.opt, state.params, t.model.decays), [()], iters=2,
         warmup=1)
-    flops, attn_flops = _train_model_flops(cfg, n_params,
-                                           state.params["embed"].numel())
+    flops, attn_flops, expert_flops = _train_model_flops(cfg, state.params)
     ms = 1e3 * sum(step_s) / len(step_s)
     stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -1184,6 +1374,7 @@ def phase_train() -> dict:
              "tokens_per_s": tokens / (ms / 1e3),
              "model_tflop_per_step": flops / 1e12,
              "attention_tflop_per_step": attn_flops / 1e12,
+             "expert_buffer_tflop_per_step": expert_flops / 1e12,
              "share_of_bf16_peak": flops / (ms / 1e3) / BF16_TENSOR_FLOPS,
              "peak_mem_gb": peak / 1e9, "losses": losses,
              "adamw_update_ms": adamw_ms,
@@ -1192,7 +1383,9 @@ def phase_train() -> dict:
           f" {stats['tokens_per_s']:.0f} tokens/s")
     print(f"  model FLOPs {flops / 1e12:.1f} TFLOP/step (attention "
           f"{attn_flops / 1e12:.2f}), {100 * stats['share_of_bf16_peak']:.1f}%"
-          f" of the 989 TFLOP/s bf16 peak")
+          f" of the 989 TFLOP/s bf16 peak"
+          + (f"; expert products as executed on the capacity buffers "
+             f"{expert_flops / 1e12:.1f} TFLOP/step" if expert_flops else ""))
     print(f"  peak memory {peak / 1e9:.2f} GB; losses "
           f"{['%.4f' % x for x in losses]}")
     print(f"  traced step: wall {trace['wall_ms']:.1f} ms, device busy "
@@ -1341,12 +1534,17 @@ def main() -> None:
     built = phase_build()
     kernels = phase_kernels(get_config("qwen2-7b"), built)
     phase_reference()
-    serves = {arch: phase_serve(arch, prompt) for arch, prompt in SERVES}
-    torch.cuda.empty_cache()
-    train_stats = phase_train()
+    serves = {}
+    for arch, prompt, layers in SERVES:
+        serves[arch] = phase_serve(arch, prompt, layers)
+        torch.cuda.empty_cache()
+    trains = {}
+    for arch, layers in TRAINS:
+        trains[arch] = phase_train(arch, layers)
+        torch.cuda.empty_cache()
     engine = phase_engine()
     paths = {**{f"serve {arch}": st["launches"] for arch, st in serves.items()},
-             f"train {train_stats['arch']}": train_stats["launches"]}
+             **{f"train {arch}": st["launches"] for arch, st in trains.items()}}
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in paths.items()}
         if not any(by_path.values()):
@@ -1355,7 +1553,7 @@ def main() -> None:
         entry["launches_by_path"] = by_path
     print("[8/8] summary")
     print(json.dumps({"serve": serves}))
-    print(json.dumps({"train": train_stats}))
+    print(json.dumps({"train": trains}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Where the time goes: a ``torch.profiler`` trace of one prefill and of a
-few decode steps on the card; ``profile`` traces any other call, as
-``chip_smoke.py``'s train phase does for one train step.
+few decode steps on the card (``profile_generate``, which ``chip_smoke.py``'s
+serve phase calls on each served model); ``profile`` traces any other call,
+as its train phase does for one train step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2-7b \\
         --batch 4 --prompt-len 512 --decode-steps 4
@@ -51,6 +52,12 @@ def _group(name: str) -> str:
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
                                        "nvjet")):
         return "matmul"
+    # torch.gather/scatter/scatter_add and sorts: the MoE routing, dispatch
+    # and combine in the models, index bookkeeping in the engine.
+    if "scatter_gather" in name:
+        return "gather_scatter"
+    if "sort" in name.lower():
+        return "sort"
     return "other"
 
 
@@ -96,6 +103,35 @@ def profile(fn) -> dict:
     return _summary(prof, wall)
 
 
+def profile_generate(model, params, tokens: torch.Tensor,
+                     decode_steps: int) -> dict:
+    """Trace one prefill of ``tokens`` [B, S] and ``decode_steps`` greedy
+    decode steps from its cache, after one untraced warm-up pass of both:
+    ``{"prefill": summary, "decode": summary}``."""
+    max_seq = tokens.shape[1] + decode_steps + 1
+
+    def run_prefill():
+        logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
+        return logits.argmax(-1, keepdim=True), cache
+
+    def run_decode(token, cache):
+        for _ in range(decode_steps):
+            logits, cache = model.decode(params, token, cache)
+            token = logits.argmax(-1, keepdim=True)
+        return token
+
+    run_decode(*run_prefill())                      # warm-up, untraced
+    prefill_out = {}
+
+    def prefill():
+        prefill_out["token"], prefill_out["cache"] = run_prefill()
+
+    out = {"prefill": profile(prefill)}
+    out["decode"] = profile(lambda: run_decode(prefill_out["token"],
+                                               prefill_out["cache"]))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b")
@@ -110,30 +146,10 @@ def main() -> None:
     params = model.init(args.seed)
     tokens = prompt_tokens(cfg.vocab_size, args.batch, args.prompt_len,
                            args.seed, "cuda")
-    max_seq = args.prompt_len + args.decode_steps + 1
-
-    def run_prefill():
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
-        return logits.argmax(-1, keepdim=True), cache
-
-    def run_decode(token, cache):
-        for _ in range(args.decode_steps):
-            logits, cache = model.decode(params, token, cache)
-            token = logits.argmax(-1, keepdim=True)
-        return token
-
-    run_decode(*run_prefill())                      # warm-up, untraced
     out = {"arch": cfg.name, "batch": args.batch,
            "prompt_len": args.prompt_len, "decode_steps": args.decode_steps,
-           "device": torch.cuda.get_device_name(0)}
-    prefill_out = {}
-
-    def prefill():
-        prefill_out["token"], prefill_out["cache"] = run_prefill()
-
-    out["prefill"] = profile(prefill)
-    out["decode"] = profile(lambda: run_decode(prefill_out["token"],
-                                               prefill_out["cache"]))
+           "device": torch.cuda.get_device_name(0),
+           **profile_generate(model, params, tokens, args.decode_steps)}
     print(json.dumps(out))
 
 

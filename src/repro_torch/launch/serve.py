@@ -1,12 +1,14 @@
 """Serving launcher CLI: batched prefill + greedy decode with a decode cache.
 
 Port of ``repro.launch.serve`` for the families the port serves (dense,
-Mamba-2, and the hybrid without MoE layers):
+MoE, Mamba-2, and the jamba hybrid with or without experts):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --batch 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch mixtral-8x22b-smoke --prompt-len 40 --gen 8
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU
 (``--device cpu``, with a ``-smoke`` arch).  Runs eagerly; the greedy

@@ -5,13 +5,17 @@ path belongs to the parallel slice of the port):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch qwen2-7b-smoke --steps 100 --ckpt-dir ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch mixtral-8x22b-smoke --steps 20 --seq 64 --ckpt-dir ckpt
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU.
-Dense configs train; a config with Mamba or MoE units raises
+Dense and MoE configs train (the MoE load-balancing loss enters the loss
+with weight ``AUX_LOSS_WEIGHT``); a config with Mamba units raises
 ``NotImplementedError``.  The loop is the fault-tolerant one: auto-resume,
 SIGTERM checkpointing, straggler detection, async checkpoints.
 :func:`setup` builds the model, optimizer, data and step for any
-``ModelConfig`` (``chip_smoke.py`` passes a depth-cut ``qwen2-7b``).
+``ModelConfig`` (``chip_smoke.py`` passes depth-cut ``qwen2-7b`` and
+``mixtral-8x22b``).
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ The JAX tree stacks the units as ``units/sub{j}/...`` arrays of shape
 [U, ...]; the port keeps a list with one dict per unit.  Weights stay
 [in, out] for ``x @ w`` on both sides, so nothing is transposed.  Each leaf
 takes the dtype the JAX init gives it: the config's dtype, except the Mamba
-leaves that stay float32 (``mamba.FP32_PARAMS``).  This is how the tests
-make the JAX model and the port compute the same function.
+and MoE leaves that stay float32 (``mamba.FP32_PARAMS``, ``moe.FP32_PARAMS``:
+the SSM decay and skip parameters, the router).  This is how the tests make
+the JAX model and the port compute the same function.
 """
 
 from __future__ import annotations
@@ -15,8 +16,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import cdtype
-from repro_torch.models.mamba import FP32_PARAMS
+from repro_torch.models import mamba, moe
 from repro_torch.models.transformer import n_units
+
+#: Float32 leaves by the name of the dict that holds them.
+_FP32 = {"mamba": mamba.FP32_PARAMS, "moe": moe.FP32_PARAMS}
 
 
 def _map(tree: dict, fn, path: tuple[str, ...] = ()) -> dict:
@@ -31,7 +35,7 @@ def from_jax_params(tree: dict, cfg: ModelConfig,
     each leaf in the dtype the JAX init gives it."""
 
     def tensor(path: tuple[str, ...], a) -> torch.Tensor:
-        fp32 = len(path) >= 2 and path[-2] == "mamba" and path[-1] in FP32_PARAMS
+        fp32 = len(path) >= 2 and path[-1] in _FP32.get(path[-2], ())
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
             device=device, dtype=torch.float32 if fp32 else cdtype(cfg))
 

@@ -1,5 +1,5 @@
-"""Uniform model API: serving for the dense, SSM and hybrid families, the
-train loss for the dense family.
+"""Uniform model API: serving for the dense, moe, SSM and hybrid families,
+the train loss for the dense and moe families.
 
 Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
 ``Model`` with:
@@ -11,9 +11,9 @@ Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
   init_cache(batch, max_seq)       -> cache
 
 ``loss`` raises ``NotImplementedError`` for a config with Mamba units (the
-SSD backward kernel is a later slice).  A config with MoE layers (the
-``moe`` family, a hybrid with experts), and the ``encdec`` and ``vlm``
-families, raise when the model is asked for.
+SSM family and the jamba hybrid, with or without experts: the SSD backward
+kernel is a later slice).  The ``encdec`` and ``vlm`` families raise when
+the model is asked for.
 """
 
 from __future__ import annotations
@@ -49,7 +49,6 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is ported in "
             f"{_LATER_SLICE[cfg.family]}")
-    transformer.ported_layout(cfg)   # raises for MoE units
     device = torch.device(device)
 
     def init(seed: int):

@@ -1,21 +1,22 @@
-"""Decoder-only LM backbone: serving for dense, SSM and hybrid units, the
-train loss for dense units.
+"""Decoder-only LM backbone: serving for dense, MoE, SSM and hybrid units,
+the train loss for units of attention with a dense or MoE FFN.
 
 Port of ``repro.models.transformer`` for units of attention or Mamba-2
-mixers with an optional dense FFN (the dense family, mamba2, and the
-hybrid's layout without MoE).  Layers are grouped into the same repeating
-*units* as in the JAX module (``unit_layout``), but parameters are a list
-with one dict per unit in place of arrays stacked over units, and the
-``lax.scan`` over units becomes a loop.  Every RMSNorm goes through
-``ops.rmsnorm`` (the Triton kernel on the card), every prefill or train
-attention through ``ops.flash_attention``, every prefill SSD scan through
-``ops.ssd_scan`` (the CUDA kernels on the card) and the train loss through
-``ops.fused_cross_entropy`` (Triton); on the card the train path's
-gradients come from their backward kernels.
+mixers with an optional dense or MoE FFN (the dense and moe families,
+mamba2, and the jamba hybrid with or without experts).  Layers are grouped
+into the same repeating *units* as in the JAX module (``unit_layout``), but
+parameters are a list with one dict per unit in place of arrays stacked
+over units, and the ``lax.scan`` over units becomes a loop.  Every RMSNorm
+goes through ``ops.rmsnorm`` (the Triton kernel on the card), every prefill
+or train attention through ``ops.flash_attention``, every prefill SSD scan
+through ``ops.ssd_scan`` (the CUDA kernels on the card) and the train loss
+through ``ops.fused_cross_entropy`` (Triton); on the card the train path's
+gradients come from their backward kernels.  The MoE FFN (``moe.moe_ffn``)
+is plain torch with cuBLAS products, as the JAX package computes it.
 
-MoE units raise ``NotImplementedError``: they come with the MoE slice of
-the port.  So does training a config with Mamba units (``loss_fn``): it
-needs a backward of the SSD kernel, a later slice.
+Training a config with Mamba units (``loss_fn``) raises
+``NotImplementedError``: it needs a backward of the SSD kernel, a later
+slice.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models.common import cdtype, dense_init, embed_init
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, load_balancing_loss, moe_ffn
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -62,18 +64,9 @@ def n_units(cfg: ModelConfig) -> int:
     return cfg.n_layers // len(unit_layout(cfg))
 
 
-def ported_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
-    """``unit_layout``, raising ``NotImplementedError`` for MoE units."""
-    layout = unit_layout(cfg)
-    if any(sub["ffn"] == "moe" for sub in layout):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE units come with the MoE slice of the port")
-    return layout
-
-
 def _init_unit(generator, cfg: ModelConfig, dtype, device) -> dict:
     p: dict[str, Any] = {}
-    for j, sub in enumerate(ported_layout(cfg)):
+    for j, sub in enumerate(unit_layout(cfg)):
         sp: dict[str, Any] = {"mixer_norm": torch.ones((cfg.d_model,),
                                                        dtype=dtype,
                                                        device=device)}
@@ -84,7 +77,10 @@ def _init_unit(generator, cfg: ModelConfig, dtype, device) -> dict:
         if sub["ffn"]:
             sp["ffn_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
                                         device=device)
-            sp["mlp"] = init_mlp(generator, cfg, dtype, device)
+            if sub["ffn"] == "moe":
+                sp["moe"] = init_moe(generator, cfg, dtype, device)
+            else:
+                sp["mlp"] = init_mlp(generator, cfg, dtype, device)
         p[f"sub{j}"] = sp
     return p
 
@@ -126,9 +122,9 @@ def lm_head(params, h, cfg: ModelConfig):
 
 # ----------------------------------------------------------------- training
 
-def _dense_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
-    """``ported_layout`` of a config the train path takes: attention units."""
-    layout = ported_layout(cfg)
+def _train_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
+    """``unit_layout`` of a config the train path takes: attention units."""
+    layout = unit_layout(cfg)
     if any(sub["mixer"] != "attn" for sub in layout):
         raise NotImplementedError(
             f"{cfg.name}: training Mamba units needs a backward of the SSD "
@@ -136,15 +132,27 @@ def _dense_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
     return layout
 
 
+def _ffn(sp, x, sub, cfg: ModelConfig):
+    """The sub-layer's FFN -> (y, router logits or None)."""
+    if sub["ffn"] == "moe":
+        return moe_ffn(sp["moe"], x, cfg)
+    return mlp(sp["mlp"], x, cfg), None
+
+
 def _apply_unit_train(h, up, cfg: ModelConfig):
-    for j, sub in enumerate(_dense_layout(cfg)):
+    """-> (h, aux): aux sums each MoE sub-layer's load-balancing loss."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j, sub in enumerate(_train_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         h = h + attn.attend_train(sp["attn"], x, cfg)
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
-            h = h + mlp(sp["mlp"], x, cfg)
-    return h
+            y, router_logits = _ffn(sp, x, sub, cfg)
+            if router_logits is not None:
+                aux = aux + load_balancing_loss(router_logits, cfg)
+            h = h + y
+    return h, aux
 
 
 def forward_train(params, tokens, cfg: ModelConfig):
@@ -153,15 +161,17 @@ def forward_train(params, tokens, cfg: ModelConfig):
     Activation checkpointing as in the JAX module (``jax.checkpoint`` on
     the unit body): only unit boundaries are kept, and the backward pass
     recomputes each unit (``torch.utils.checkpoint``, non-reentrant), so
-    each unit's kernels run twice forward and once backward.  Dense units
-    have no auxiliary loss; it is 0, as in JAX.
+    each unit's kernels run twice forward and once backward.  The aux loss
+    is the sum over units of their MoE load-balancing losses, 0 for dense
+    units, as in JAX.
     """
-    _dense_layout(cfg)
+    _train_layout(cfg)
     h = embed_tokens(params, tokens, cfg)
-    for up in params["units"]:
-        h = checkpoint(_apply_unit_train, h, up, cfg, use_reentrant=False)
-    h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for up in params["units"]:
+        h, a = checkpoint(_apply_unit_train, h, up, cfg, use_reentrant=False)
+        aux = aux + a
+    h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return lm_head(params, h, cfg), aux
 
 
@@ -200,7 +210,7 @@ class LayerCache(NamedTuple):
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> list[LayerCache]:
     dtype = cdtype(cfg)
-    layout = ported_layout(cfg)
+    layout = unit_layout(cfg)
     n_attn = sum(1 for s in layout if s["mixer"] == "attn")
     n_mamba = len(layout) - n_attn
     return [LayerCache(
@@ -213,7 +223,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int):
     kvs, ssms = [], []
-    for j, sub in enumerate(ported_layout(cfg)):
+    for j, sub in enumerate(unit_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         if sub["mixer"] == "attn":
@@ -225,7 +235,7 @@ def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int):
         h = h + y
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
-            h = h + mlp(sp["mlp"], x, cfg)
+            h = h + _ffn(sp, x, sub, cfg)[0]
     return h, LayerCache(kv=tuple(kvs), ssm=tuple(ssms))
 
 
@@ -247,7 +257,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
 
 def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig):
     kvs, ssms = [], []
-    for j, sub in enumerate(ported_layout(cfg)):
+    for j, sub in enumerate(unit_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         if sub["mixer"] == "attn":
@@ -259,7 +269,7 @@ def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig):
         h = h + y
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
-            h = h + mlp(sp["mlp"], x, cfg)
+            h = h + _ffn(sp, x, sub, cfg)[0]
     return h, LayerCache(kv=tuple(kvs), ssm=tuple(ssms))
 
 

@@ -13,7 +13,8 @@ entry: exp of differences of a chunk's cumulative sum of dt*A, summed in
 another order, errs by ~|cumsum| * 2^-24, and over a 256-row chunk that
 reaches ~1e-4 of the largest term where the terms cancel.  The train
 path's kernels (the fused cross-entropy and the three backward kernels)
-state their tolerances below.  The bf16 SSD kernels split each fp32
+and the MoE FFN (plain torch with cuBLAS products) state their tolerances
+below.  The bf16 SSD kernels split each fp32
 operand into a hi and a lo bf16 product; the tolerances stay those above.
 """
 
@@ -485,6 +486,53 @@ def test_cuda_train_step_matches_cpu(cuda):
     s_cpu, m_cpu = t_cpu.train_step(s_cpu, batch)
     s_gpu, m_gpu = t_gpu.train_step(s_gpu, batch)
     assert abs(float(m_cpu["loss"]) - float(m_gpu["loss"])) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_matches_cpu_with_drops(cuda):
+    """The MoE FFN in float32 at a capacity that drops pairs: the card's
+    keep mask equals the CPU's and its output is within 1e-5 (the same sums
+    in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("mixtral-8x22b").smoke(capacity_factor=0.5)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32,
+                     "cpu")
+    x = torch.from_numpy(_normal(0, (3, 70, cfg.d_model)))
+    y, logits = moe.moe_ffn(p, x, cfg)
+    yg, lg = moe.moe_ffn({k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
+                         cfg)
+    keep = moe.route(logits, cfg).keep
+    assert not bool(keep.all())
+    assert torch.equal(moe.route(lg, cfg).keep.cpu(), keep)
+    np.testing.assert_allclose(_np(lg), _np(logits), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(yg), _np(y), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_bf16_at_mixtral_width(cuda):
+    """One MoE layer at mixtral-8x22b's widths in bf16 (batch 4, 512
+    tokens; weights drawn on the card): the same routing as the float32 CPU
+    result on the same bf16 values, the output within 2e-2 of it (bf16
+    roundings of the buffer products and the sum), and two calls bit-equal
+    (each token's at most two terms are added to a zeroed row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("mixtral-8x22b")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init_moe(g, cfg, torch.bfloat16, cuda)
+    x = torch.randn(4, 512, cfg.d_model, generator=g, device=cuda).bfloat16()
+    y, logits = moe.moe_ffn(p, x, cfg)
+    again, _ = moe.moe_ffn(p, x, cfg)
+    assert torch.equal(y, again)
+    del again
+    p32 = {k: v.float().cpu() for k, v in p.items()}
+    y32, l32 = moe.moe_ffn(p32, x.float().cpu(), cfg)
+    assert torch.equal(moe.route(logits, cfg).dest.cpu(),
+                       moe.route(l32, cfg).dest)
+    np.testing.assert_allclose(_np(y), _np(y32), rtol=2e-2, atol=2e-2)
 
 
 ENGINE_CASES = [  # (scenario, topology): every registered one, and fat_tree
