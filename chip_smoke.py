@@ -26,32 +26,46 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 ``torch.profiler`` trace of ten calls) and the scratch one
                 call allocates (``torch.cuda.max_memory_allocated``); then
                 every kernel of the mixtral paths checked again at
-                mixtral-8x22b's widths;
+                mixtral-8x22b's widths, and every kernel of the whisper and
+                llava paths at theirs (flash attention at the whisper
+                encoder's and cross-attention's shapes and llava's prefill,
+                the backward without the causal mask at Sq 448 x Sk 1500,
+                RMSNorm at D 512 and 7168, the cross-entropy at V 51865
+                and 64000; timed beside their bounds and library calls);
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
                 tokens, logits within 1e-3 (dense qwen2, mixtral with a
                 capacity that drops tokens, Mamba-2 with the real SSD head
                 sizes at a ragged prompt, the jamba hybrid without and with
                 experts; the MoE models' dropped (token, choice) pairs
-                equal on both); three float32 smoke models (two qwen2, the
-                dropping mixtral) trained three steps on the card and on
-                the CPU from the same parameters (gradients, losses, ce
-                and aux, launch counts); the train loop on the card,
-                resumed from its checkpoint;
+                equal on both; whisper with 100 frames against a 40-token
+                prompt, llava with its prefix); five float32 smoke models
+                (two qwen2, the dropping mixtral, whisper with frames
+                longer than its tokens, llava) trained three steps on the
+                card and on the CPU from the same parameters (gradients,
+                losses, ce and aux, launch counts); the train loop on the
+                card, resumed from its checkpoint;
 5. serve     -- through ``repro_torch.launch.serve``: qwen2-7b at full width
                 (28 layers, bf16, batch 4, prompt 512, 32 tokens), then
                 mamba2-370m at full width and depth (48 layers, bf16, batch
                 4, prompt 2048, 32 tokens), then mixtral-8x22b at full width
                 cut to 8 of its 56 layers (bf16, batch 4, prompt 512, 32
-                tokens; the prefill's dropped pairs); each followed by a
-                traced prefill and four decode steps
+                tokens; the prefill's dropped pairs), then whisper-base at
+                full width and depth (6 + 6 layers, batch 16, 1500 frames,
+                prompt 224, 32 tokens), then llava-next-34b at full width
+                cut to 40 of its 60 layers (batch 4, 2880 prefix rows and a
+                128-token prompt, 32 tokens); each followed by a traced
+                prefill and four decode steps
                 (``profile_serve.profile_generate``);
-6. train     -- through ``repro_torch.launch.train.setup``, batch 2 x 4096
-                tokens, AdamW, one warm-up step and three timed steps, then
-                one traced step for the device's idle share: qwen2-7b at
-                full width cut to 8 of its 28 layers, then mixtral-8x22b at
-                full width cut to 1 of its 56 (model FLOPs of the active
-                parameters, k of E experts per token);
+6. train     -- through ``repro_torch.launch.train.setup``, AdamW, one
+                warm-up step and three timed steps, then one traced step
+                for the device's idle share: qwen2-7b at full width cut to
+                8 of its 28 layers and mixtral-8x22b at full width cut to 1
+                of its 56 (model FLOPs of the active parameters, k of E
+                experts per token), both batch 2 x 4096 tokens; whisper-base
+                at full width and depth, batch 16 x (1500 frames, 448
+                tokens); llava-next-34b at full width cut to 4 of its 60
+                layers, batch 2 x (2880 prefix rows + 1216 tokens);
 7. engine    -- the lockstep fifo engine (``repro_torch.core.simtorch``) at
                 the repo's batched-bench setup: each of the six registered
                 scenarios at full size on its registered topology, and
@@ -85,6 +99,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -96,11 +111,20 @@ FP32_FLOPS = 67e12
 
 SEED = 0
 BATCH, GEN = 4, 32
-# (arch, prompt, layers).  mixtral-8x22b cut to 8 of its 56 layers: 20.4 B
-# parameters, 40.9 GB in bf16, where 56 layers would take ~282 GB.
-SERVES = (("qwen2-7b", 512, 28), ("mamba2-370m", 2048, 48),
-          ("mixtral-8x22b", 512, 8))
-PROMPT = SERVES[0][1]
+# (arch, batch, prompt, layers, encoder frames).  mixtral-8x22b cut to 8 of
+# its 56 layers: 20.4 B parameters, 40.9 GB in bf16, where 56 layers would
+# take ~282 GB.  whisper-base at full depth (6 + 6 layers): a 30-s window
+# (1500 frames: 30 s of 10-ms mel frames through two convs, the second of
+# stride 2) with the previous window's text as a 224-token prompt, as its
+# long-form decoding runs.  llava-next-34b cut to 40 of its 60 layers: 23.2 B
+# parameters, 46.5 GB in bf16 (60 layers take 68.8 GB of weights alone); its
+# prefix is 2880 patch rows (5 tiles x 576) ahead of the prompt.
+SERVES = (("qwen2-7b", BATCH, 512, 28, None),
+          ("mamba2-370m", BATCH, 2048, 48, None),
+          ("mixtral-8x22b", BATCH, 512, 8, None),
+          ("whisper-base", 16, 224, 6, 1500),
+          ("llava-next-34b", BATCH, 128, 40, None))
+PROMPT = SERVES[0][2]
 PROFILE_DECODE_STEPS = 4   # decode steps of each serve cell's traced run
 RMSNORM_TOL = 2e-2   # bf16: both round one fp32 result to bf16
 FLASH_TOL = {torch.bfloat16: 2e-2,   # bf16 output; plain version rounds p
@@ -134,15 +158,22 @@ LSE_TOL = 2e-5
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-4
 REF_TRAIN_STEPS = 3
-# The full-width train runs, (arch, layers): qwen2-7b cut to 8 of 28 layers
-# (the state of 28 layers, 7.6 B parameters at 12 bytes each, exceeds the
-# card's 80 GB); mixtral-8x22b cut to 1 of 56 (2.91 B parameters, 34.9 GB of
-# state; two layers' 65 GB plus AdamW's fp32 temporaries on its
-# [8, 6144, 16384] expert leaves come too close to 80 GB).  Batch 2 x 4096
-# (the repo's train_4k sequence; its global batch of 256 cut to 2), a
-# warm-up step and three timed steps.
-TRAINS = (("qwen2-7b", 8), ("mixtral-8x22b", 1))
+# The full-width train runs, (arch, layers, batch, text tokens, encoder
+# frames): qwen2-7b cut to 8 of 28 layers (the state of 28 layers, 7.6 B
+# parameters at 12 bytes each, exceeds the card's 80 GB); mixtral-8x22b cut
+# to 1 of 56 (2.91 B parameters, 34.9 GB of state; two layers' 65 GB plus
+# AdamW's fp32 temporaries on its [8, 6144, 16384] expert leaves come too
+# close to 80 GB); both batch 2 x 4096 (the repo's train_4k sequence; its
+# global batch of 256 cut to 2).  whisper-base at full depth, 16 x (1500
+# frames, 448 tokens: its published encoder and text contexts).
+# llava-next-34b cut to 4 of 60 layers (3.15 B parameters, 37.8 GB of
+# state), 2 x 4096 = 2880 prefix rows + 1216 text tokens (train_4k with the
+# VLM split of launch/specs.py).  A warm-up step and three timed steps.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
+TRAINS = (("qwen2-7b", 8, TRAIN_BATCH, TRAIN_SEQ, None),
+          ("mixtral-8x22b", 1, TRAIN_BATCH, TRAIN_SEQ, None),
+          ("whisper-base", 6, 16, 448, 1500),
+          ("llava-next-34b", 4, TRAIN_BATCH, TRAIN_SEQ - 2880, None))
 # Copies of a timed kernel's inputs: four prefill-sized sets exceed the L2.
 COPIES = {"prefill": 4, "decode": 1}
 # The engine phase: the batched-bench setup of the repo's simulator-core
@@ -337,9 +368,37 @@ def phase_build() -> dict[str, dict]:
     return _check_bf16_tensor_cores()
 
 
-def _rmsnorm_entry(cfg) -> dict:
+def _rmsnorm_row(label: str, x: torch.Tensor, scale: torch.Tensor,
+                 eps: float, copies: int) -> dict:
+    """RMSNorm of ``x`` against its plain version, then the kernel, the
+    plain version and ``F.rms_norm`` timed on ``copies`` input sets beside
+    the bound."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import ops, ref
+
+    D = x.shape[-1]
+    label = f"rmsnorm {label} {list(x.shape)} bf16"
+    err = check(label, ops.rmsnorm(x, scale, eps),
+                ref.rmsnorm_ref(x, scale, eps), RMSNORM_TOL)
+    n = x.numel()
+    b_ms, b_by = bound(2 * n * x.element_size() + D * 2, 4 * n, FP32_FLOPS)
+    args = [(x, scale, eps)] + [(torch.randn_like(x), scale, eps)
+                                for _ in range(copies - 1)]
+    t = {"max_abs_err": err,
+         "ms": time_ms(ops.rmsnorm, args),
+         "call_ms": time_ms(ops.rmsnorm, args, device_only=False),
+         "plain_ms": time_ms(ref.rmsnorm_ref, args),
+         "library_ms": time_ms(lambda x, s, e: F.rms_norm(x, (D,), s, e),
+                               args),
+         "bound_ms": b_ms, "bound_by": b_by, "shape": list(x.shape)}
+    print(f"  time {label}: kernel {t['ms']:.4f} ms (per call from the host "
+          f"{t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, library "
+          f"{t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return t
+
+
+def _rmsnorm_entry(cfg) -> dict:
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -351,26 +410,12 @@ def _rmsnorm_entry(cfg) -> dict:
     for rows, key in (((BATCH, PROMPT), "prefill"), ((BATCH, 1), "decode"),
                       ((TRAIN_BATCH, TRAIN_SEQ), "train")):
         x = torch.randn(*rows, D, generator=g, device="cuda").bfloat16()
-        err = check(f"rmsnorm {key} {list(x.shape)} bf16",
-                    ops.rmsnorm(x, scale, eps), ref.rmsnorm_ref(x, scale, eps),
-                    RMSNORM_TOL)
         if key == "train":   # compared only; its time is in the train trace
+            check(f"rmsnorm {key} {list(x.shape)} bf16",
+                  ops.rmsnorm(x, scale, eps), ref.rmsnorm_ref(x, scale, eps),
+                  RMSNORM_TOL)
             continue
-        n = x.numel()
-        b_ms, b_by = bound(2 * n * x.element_size() + D * 2, 4 * n, FP32_FLOPS)
-        args = [(x, scale, eps)] + [(torch.randn_like(x), scale, eps)
-                                    for _ in range(COPIES[key] - 1)]
-        t = {"max_abs_err": err,
-             "ms": time_ms(ops.rmsnorm, args),
-             "call_ms": time_ms(ops.rmsnorm, args, device_only=False),
-             "plain_ms": time_ms(ref.rmsnorm_ref, args),
-             "library_ms": time_ms(
-                 lambda x, s, e: F.rms_norm(x, (D,), s, e), args),
-             "bound_ms": b_ms, "bound_by": b_by, "shape": list(x.shape)}
-        print(f"  time rmsnorm {key} {list(x.shape)}: kernel {t['ms']:.4f} ms "
-              f"(per call from the host {t['call_ms']:.4f} ms), plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        t = _rmsnorm_row(key, x, scale, eps, COPIES[key])
         if key == "prefill":
             entry.update(t)
         else:
@@ -389,10 +434,66 @@ def _flash_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
-def _flash_entry(cfg) -> dict:
+def _flash_plain(q, k, v, causal: bool, window: int = 0):
+    """The plain version of flash attention in the model layout."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window).transpose(1, 2)
+
+
+def _sdpa(q, k, v, causal: bool):
+    """SDPA, the library call, on the model layout (Sq == Sk where causal:
+    its causal mask is aligned top-left)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+
+def _flash_row(label: str, make, causal: bool, copies: int,
+               iters: int = 20) -> dict:
+    """Flash attention on ``make()``'s (q, k, v) against its plain version,
+    then the kernel, the plain version and SDPA timed on ``copies`` input
+    sets beside the bound (no window)."""
+    from repro_torch.kernels import ops
+
+    q, k, v = make()
+    err = check(label, ops.flash_attention(q, k, v, causal=causal),
+                _flash_plain(q, k, v, causal), FLASH_TOL[q.dtype])
+    B, Sq, H, hd = q.shape
+    # q, k and v read once, the output (q's shape) written once.
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    flops = 4 * B * H * hd * _flash_pairs(Sq, k.shape[1], causal, 0)
+    b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    args = [(q, k, v)] + [make() for _ in range(copies - 1)]
+
+    def kernel(q, k, v):
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    row = {"max_abs_err": err,
+           "ms": time_ms(kernel, args, iters),
+           "call_ms": time_ms(kernel, args, iters, device_only=False),
+           "plain_ms": time_ms(lambda q, k, v: _flash_plain(q, k, v, causal),
+                               args, iters),
+           "library_ms": time_ms(lambda q, k, v: _sdpa(q, k, v, causal),
+                                 args, iters),
+           "bound_ms": b_ms, "bound_by": b_by, "shape": list(q.shape),
+           "kv_shape": list(k.shape)}
+    row.update(tflops=flops / row["ms"] / 1e9, bound_share=b_ms / row["ms"])
+    print(f"  time {label}: kernel {row['ms']:.4f} ms (per call from the "
+          f"host {row['call_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); "
+          f"{row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of "
+          f"the bound")
+    return row
+
+
+def _flash_entry(cfg) -> dict:
+    from repro_torch.kernels import ops
 
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -401,48 +502,21 @@ def _flash_entry(cfg) -> dict:
         return [torch.randn(BATCH, S, n, hd, generator=g, device="cuda")
                 .to(dtype) for n in (H, KV, KV)]
 
-    def plain(q, k, v, window):
-        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), causal=True,
-                                       window=window).transpose(1, 2)
-
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:86"}
     cases = [(PROMPT, 0, torch.bfloat16), (200, 0, torch.bfloat16),
              (PROMPT, 128, torch.bfloat16), (200, 0, torch.float32)]
     for S, window, dtype in cases:
-        q, k, v = inputs(S, dtype)
         label = (f"flash_attention B{BATCH} H{H} KV{KV} S{S} hd{hd} "
                  f"{str(dtype).split('.')[-1]} causal window={window}")
-        err = check(label, ops.flash_attention(q, k, v, window=window),
-                    plain(q, k, v, window), FLASH_TOL[dtype])
-        if (S, window, dtype) != cases[0]:
+        if (S, window, dtype) == cases[0]:
+            entry.update(_flash_row(label, lambda: inputs(S, dtype), True,
+                                    COPIES["prefill"]))
             continue
-        # q, k and v read once, the output (q's shape) written once.
-        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-        flops = 4 * BATCH * H * hd * _flash_pairs(S, S, True, window)
-        b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
-        args = [(q, k, v)] + [tuple(inputs(S, dtype))
-                              for _ in range(COPIES["prefill"] - 1)]
-        entry.update(
-            max_abs_err=err,
-            ms=time_ms(ops.flash_attention, args),
-            call_ms=time_ms(ops.flash_attention, args, device_only=False),
-            plain_ms=time_ms(lambda q, k, v: plain(q, k, v, 0), args),
-            library_ms=time_ms(
-                lambda q, k, v: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True), args),
-            bound_ms=b_ms, bound_by=b_by, shape=list(q.shape))
-        entry.update(tflops=flops / entry["ms"] / 1e9,
-                     bound_share=b_ms / entry["ms"])
-        print(f"  time {label}: kernel {entry['ms']:.4f} ms (per call from "
-              f"the host {entry['call_ms']:.4f} ms), plain "
-              f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} GFLOP, "
-              f"{n_bytes / 1e6:.1f} MB); {entry['tflops']:.1f} TFLOP/s, "
-              f"{100 * entry['bound_share']:.1f}% of the bound")
+        q, k, v = inputs(S, dtype)
+        check(label, ops.flash_attention(q, k, v, window=window),
+              _flash_plain(q, k, v, True, window), FLASH_TOL[dtype])
     return entry
 
 
@@ -528,7 +602,7 @@ def _ssd_entry() -> dict:
     entry = {"name": "ssd_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "replaces": "src/repro/kernels/ssd_scan.py:82"}
-    S_SERVE = SERVES[1][1]
+    S_SERVE = SERVES[1][2]
     # (S, dtype, the model's A (else the test cases' A), initial state).  The
     # serve shape, two ragged lengths (a partial chunk), a nonzero initial
     # state in bf16 and in float32, float32 with the tests' A.
@@ -639,13 +713,91 @@ def _check_grads(label: str, got: tuple, want: tuple, tol: float,
                for n, g, w in zip(names, got, want))
 
 
+def _flash_plain_lse(q, k, causal: bool, window: int):
+    """[B, H, Sq] fp32 logsumexp of the plain version's scaled, masked fp32
+    scores (queries right-aligned to the keys)."""
+    Sq, Sk, h, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    kx = k.float().repeat_interleave(h // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) / math.sqrt(d)
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    return torch.logsumexp(s.masked_fill_(~mask, -math.inf), dim=-1)
+
+
+def _flash_bwd_row(label: str, q, k, v, dout, causal: bool, window: int,
+                   timed: bool) -> dict:
+    """The flash backward on (q, k, v, dout): the forward with lse against
+    its plain version (and equal to the forward without lse), two backward
+    calls bit-equal and within ``BWD_TOL`` of autograd through the plain
+    version in float32; with ``timed`` the kernel, that autograd and SDPA's
+    backward timed beside the bound (no window)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def plain(q, k, v):
+        return _flash_plain(q, k, v, causal, window)
+
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    if not torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
+                                               window=window)):
+        fail(f"{label}: the forward with lse differs from without it")
+    check(f"{label} forward out", out, plain(q, k, v), FLASH_TOL[q.dtype])
+    check(f"{label} forward lse", lse, _flash_plain_lse(q, k, causal, window),
+          LSE_TOL)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    if not all(map(torch.equal, got, again)):
+        fail(f"{label}: two backward calls on the same inputs differ")
+    del again
+    want = _grads(plain, (q, k, v), dout, torch.float32)
+    err = _check_grads(label, got, want, BWD_TOL[q.dtype], "qkv")
+    print(f"  check {label}: a second call's dq, dk, dv bit-equal ok")
+    del want, got
+    row = {"max_abs_err": err, "shape": list(q.shape),
+           "kv_shape": list(k.shape)}
+    if not timed:
+        return row
+    # q, k, v, o, dO and lse read once; dq, dk, dv written once; five
+    # products of the forward's size (scores, dP, dV, dK, dQ).  The two
+    # passes execute seven (S and dP in each): 1.4x this count.
+    B, Sq, h, d = q.shape
+    n_bytes = (sum(t.numel() * t.element_size()
+                   for t in (q, k, v, out, dout, q, k, v)) + lse.numel() * 4)
+    flops = 10 * B * h * d * _flash_pairs(Sq, k.shape[1], causal, window)
+    b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    row.update(
+        ms=time_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal,
+                                                     window=window),
+                   [(q, k, v, out, lse, dout)], iters=5, warmup=1),
+        plain_ms=time_ms(_backward_timer(plain, (q, k, v), dout), [()],
+                         iters=5, warmup=1),
+        library_ms=time_ms(_backward_timer(
+            lambda q, k, v: _sdpa(q, k, v, causal), (q, k, v), dout), [()],
+            iters=5, warmup=1),
+        bound_ms=b_ms, bound_by=b_by)
+    row.update(tflops=flops / row["ms"] / 1e9,
+               executed_tflops=1.4 * flops / row["ms"] / 1e9,
+               bound_share=b_ms / row["ms"])
+    print(f"  time {label}: kernel {row['ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
+          f"{n_bytes / 1e6:.1f} MB); {row['tflops']:.1f} TFLOP/s by the "
+          f"bound's count ({row['executed_tflops']:.1f} executed), "
+          f"{100 * row['bound_share']:.1f}% of the bound")
+    return row
+
+
 def _flash_bwd_entry(cfg, fwd: dict) -> dict:
     """The backward's entry; the forward's train-shape numbers (``*_train``)
     go into ``fwd``, the forward's entry."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     entry = {"name": "flash_attention_bwd", "route": "cuda",
@@ -653,23 +805,6 @@ def _flash_bwd_entry(cfg, fwd: dict) -> dict:
              "replaces": "src/repro/kernels/flash_attention.py:86",
              "note": "backward of flash_attention; the TPU kernel is "
                      "forward-only, so this kernel has no TPU counterpart"}
-
-    def plain(q, k, v, window):
-        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), causal=True,
-                                       window=window).transpose(1, 2)
-
-    def plain_lse(q, k, v, window):
-        """[B, H, S] fp32 logsumexp of the plain version's scaled, masked
-        fp32 scores."""
-        S, h, d = q.shape[1], q.shape[2], q.shape[3]
-        kx = k.float().repeat_interleave(h // k.shape[2], dim=2)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) / math.sqrt(d)
-        qi = torch.arange(S, device=q.device)[:, None]
-        kj = torch.arange(S, device=q.device)[None, :]
-        mask = (kj <= qi) & ((kj > qi - window) if window else True)
-        return torch.logsumexp(s.masked_fill_(~mask, -math.inf), dim=-1)
-
     # (B, S, H, KV, hd, window, dtype): the train shape, a ragged window, MQA,
     # float32 with GQA and with a window.
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -683,70 +818,22 @@ def _flash_bwd_entry(cfg, fwd: dict) -> dict:
                          .to(dtype) for n in (h, kv, kv, h))
         label = (f"flash_attention_bwd B{B} S{S} H{h} KV{kv} hd{d} "
                  f"{str(dtype).split('.')[-1]} causal window={window}")
-        out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
-        if not torch.equal(out, fa.flash_attention(q, k, v, window=window)):
-            fail(f"{label}: the forward with lse differs from without it")
-        check(f"{label} forward out", out, plain(q, k, v, window),
-              FLASH_TOL[dtype])
-        check(f"{label} forward lse", lse, plain_lse(q, k, v, window), LSE_TOL)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
-        if not all(map(torch.equal, got, again)):
-            fail(f"{label}: two backward calls on the same inputs differ")
-        del again
-        want = _grads(lambda q, k, v: plain(q, k, v, window), (q, k, v), dout,
-                      torch.float32)
-        err = _check_grads(label, got, want, BWD_TOL[dtype], "qkv")
-        print(f"  check {label}: a second call's dq, dk, dv bit-equal ok")
-        del want
-        if (B, S, dtype) != (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16):
+        train = (B, S, dtype) == (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
+        row = _flash_bwd_row(label, q, k, v, dout, True, window, train)
+        if not train:
             continue
-        # q, k, v, o, dO and lse read once; dq, dk, dv written once; five
-        # products of the forward's size (scores, dP, dV, dK, dQ).  The two
-        # passes execute seven (S and dP in each): 1.4x this count.
-        n_bytes = (sum(t.numel() * t.element_size()
-                       for t in (q, k, v, out, dout, q, k, v))
-                   + lse.numel() * 4)
-        pairs = _flash_pairs(S, S, True, window)
-        flops = 10 * B * h * d * pairs
-        b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
-        args = [(q, k, v, out, lse, dout)]
-        entry.update(
-            max_abs_err=err,
-            ms=time_ms(lambda *a: fa.flash_attention_bwd(*a, window=window),
-                       args, iters=5, warmup=1),
-            plain_ms=time_ms(_backward_timer(
-                lambda q, k, v: plain(q, k, v, window), (q, k, v), dout),
-                [()], iters=5, warmup=1),
-            library_ms=time_ms(_backward_timer(
-                lambda q, k, v: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True).transpose(1, 2),
-                (q, k, v), dout), [()], iters=5, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, shape=list(q.shape))
-        entry.update(tflops=flops / entry["ms"] / 1e9,
-                     executed_tflops=1.4 * flops / entry["ms"] / 1e9,
-                     bound_share=b_ms / entry["ms"])
-        print(f"  time {label}: kernel {entry['ms']:.3f} ms, plain "
-              f"{entry['plain_ms']:.3f} ms, library {entry['library_ms']:.3f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
-              f"{n_bytes / 1e6:.1f} MB); {entry['tflops']:.1f} TFLOP/s by "
-              f"the bound's count ({entry['executed_tflops']:.1f} executed), "
-              f"{100 * entry['bound_share']:.1f}% of the bound")
+        entry.update(row)
         # The forward with lse at this shape, as the train step runs it.
-        f_flops = 4 * B * h * d * pairs
+        f_flops = 4 * B * h * d * _flash_pairs(S, S, True, window)
         f_ms, f_by = bound(sum(t.numel() * t.element_size()
-                               for t in (q, k, v, out)) + lse.numel() * 4,
+                               for t in (q, k, v, q)) + B * h * S * 4,
                            f_flops, BF16_TENSOR_FLOPS)
         fwd.update(
             ms_train=time_ms(
                 lambda q, k, v: fa.flash_attention(q, k, v, return_lse=True),
                 [(q, k, v)], iters=5, warmup=1),
-            library_ms_train=time_ms(
-                lambda q, k, v: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True), [(q, k, v)], iters=5,
-                warmup=1),
+            library_ms_train=time_ms(lambda q, k, v: _sdpa(q, k, v, True),
+                                     [(q, k, v)], iters=5, warmup=1),
             bound_ms_train=f_ms, bound_by_train=f_by,
             shape_train=list(q.shape))
         fwd.update(tflops_train=f_flops / fwd["ms_train"] / 1e9,
@@ -759,62 +846,131 @@ def _flash_bwd_entry(cfg, fwd: dict) -> dict:
     return entry
 
 
-def _rmsnorm_bwd_entry(cfg) -> dict:
+def _rmsnorm_bwd_row(label: str, shape, dtype, g, eps: float,
+                     timed: bool) -> dict:
+    """The RMSNorm backward on random x, dy and scale of ``shape`` against
+    autograd through the plain version in float32; with ``timed`` the
+    kernel, that autograd and ``F.rms_norm``'s backward timed beside the
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
+    x, dy = (torch.randn(*shape, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    scale = (1 + 0.1 * torch.randn(shape[-1], generator=g,
+                                   device="cuda")).to(dtype)
+    label = f"rmsnorm_bwd {label}{list(shape)} {str(dtype).split('.')[-1]}"
+    got = rn.rmsnorm_bwd(x, scale, dy, eps)
+    want = _grads(lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy,
+                  torch.float32)
+    row = {"max_abs_err": _check_grads(label, got, want, BWD_TOL[dtype],
+                                       ("x", "scale")),
+           "shape": list(shape)}
+    if not timed:
+        return row
+    # x and dy read, dx written (scale and dscale are a few KB).
+    n = x.numel()
+    n_bytes = 3 * n * x.element_size() + 2 * shape[-1] * 2
+    b_ms, b_by = bound(n_bytes, 10 * n, FP32_FLOPS)
+    row.update(
+        ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()]),
+        call_ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()],
+                        device_only=False),
+        plain_ms=time_ms(_backward_timer(
+            lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy), [()]),
+        library_ms=time_ms(_backward_timer(
+            lambda x, s: F.rms_norm(x, (shape[-1],), s, eps), (x, scale),
+            dy), [()]),
+        bound_ms=b_ms, bound_by=b_by)
+    print(f"  time {label}: kernel {row['ms']:.4f} ms (per call from the "
+          f"host {row['call_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{n_bytes / 1e6:.1f} MB)")
+    return row
+
+
+def _rmsnorm_bwd_entry(cfg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    D, eps = cfg.d_model, cfg.norm_eps
     entry = {"name": "rmsnorm_bwd", "route": "triton",
              "source": "src/repro_torch/kernels/rmsnorm.py",
              "replaces": "src/repro/kernels/rmsnorm.py:25",
              "note": "backward of rmsnorm; the TPU kernel is forward-only, so "
                      "this kernel has no TPU counterpart"}
-    cases = [((TRAIN_BATCH, TRAIN_SEQ, D), torch.bfloat16),
-             ((3, 100, D), torch.float32), ((7, 256), torch.float32)]
+    cases = [((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), torch.bfloat16),
+             ((3, 100, cfg.d_model), torch.float32),
+             ((7, 256), torch.float32)]
     for shape, dtype in cases:
-        x, dy = (torch.randn(*shape, generator=g, device="cuda").to(dtype)
-                 for _ in range(2))
-        scale = (1 + 0.1 * torch.randn(shape[-1], generator=g,
-                                       device="cuda")).to(dtype)
-        label = f"rmsnorm_bwd {list(shape)} {str(dtype).split('.')[-1]}"
-        got = rn.rmsnorm_bwd(x, scale, dy, eps)
-        want = _grads(lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy,
-                      torch.float32)
-        err = _check_grads(label, got, want, BWD_TOL[dtype], ("x", "scale"))
-        if shape[:2] != (TRAIN_BATCH, TRAIN_SEQ):
-            continue
-        # x and dy read, dx written (scale and dscale are 7 KB).
-        n = x.numel()
-        n_bytes = 3 * n * x.element_size() + 2 * shape[-1] * 2
-        b_ms, b_by = bound(n_bytes, 10 * n, FP32_FLOPS)
-        entry.update(
-            max_abs_err=err,
-            ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()]),
-            call_ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()],
-                            device_only=False),
-            plain_ms=time_ms(_backward_timer(
-                lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy),
-                [()]),
-            library_ms=time_ms(_backward_timer(
-                lambda x, s: F.rms_norm(x, (shape[-1],), s, eps), (x, scale),
-                dy), [()]),
-            bound_ms=b_ms, bound_by=b_by, shape=list(shape))
-        print(f"  time {label}: kernel {entry['ms']:.4f} ms (per call from "
-              f"the host {entry['call_ms']:.4f} ms), plain "
-              f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+        train = shape[:2] == (TRAIN_BATCH, TRAIN_SEQ)
+        row = _rmsnorm_bwd_row("", shape, dtype, g, cfg.norm_eps, train)
+        if train:
+            entry.update(row)
     return entry
 
 
-def _ce_entries(cfg) -> list[dict]:
+def _ce_rows(label: str, T: int, V: int, dtype, g,
+             timed: bool) -> tuple[dict, dict]:
+    """The fused cross-entropy and its backward on random [T, V] logits
+    (every seventh label negative) against the plain version; with
+    ``timed`` the kernels, the plain versions and ``F.cross_entropy``
+    timed beside the bounds.  Returns the forward's and the backward's
+    rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_ce as ce
     from repro_torch.kernels import ref
 
+    logits = (2 * torch.randn(T, V, generator=g, device="cuda")).to(dtype)
+    labels = torch.randint(0, V, (T,), generator=g, device="cuda")
+    labels[::7] = -1
+    gr = torch.rand(T, generator=g, device="cuda")
+    label = (f"fused_cross_entropy {label}[{T}, {V}] "
+             f"{str(dtype).split('.')[-1]}")
+    nll, lse = ce.fused_cross_entropy(logits, labels)
+    fwd = {"max_abs_err": check(label, nll,
+                                ref.cross_entropy_ref(logits, labels),
+                                CE_TOL[dtype]), "shape": [T, V]}
+    dx = ce.fused_cross_entropy_bwd(logits, labels, lse, gr)
+    (want,) = _grads(lambda x: ref.cross_entropy_ref(x, labels), (logits,),
+                     gr, torch.float32)
+    bwd = {"max_abs_err": _check_grads(label + " bwd", (dx,), (want,),
+                                       BWD_TOL[dtype], ("logits",)),
+           "shape": [T, V]}
+    del want, dx
+    if not timed:
+        return fwd, bwd
+    n = T * V
+    lab0 = labels.clamp(min=0)    # F.cross_entropy has no label -1
+    fb_bytes = n * logits.element_size() + T * (8 + 4 + 4)
+    fb_ms, fb_by = bound(fb_bytes, 4 * n, FP32_FLOPS)
+    fwd.update(
+        ms=time_ms(ce.fused_cross_entropy, [(logits, labels)], iters=10),
+        plain_ms=time_ms(ref.cross_entropy_ref, [(logits, labels)], iters=10),
+        library_ms=time_ms(lambda x, y: F.cross_entropy(
+            x.float(), y, reduction="none"), [(logits, lab0)], iters=10),
+        bound_ms=fb_ms, bound_by=fb_by)
+    b_bytes = 2 * n * logits.element_size() + T * (8 + 4 + 4)
+    bb_ms, bb_by = bound(b_bytes, 4 * n, FP32_FLOPS)
+    bwd.update(
+        ms=time_ms(lambda: ce.fused_cross_entropy_bwd(logits, labels, lse,
+                                                      gr), [()], iters=10),
+        plain_ms=time_ms(_backward_timer(
+            lambda x: ref.cross_entropy_ref(x, labels), (logits,), gr),
+            [()], iters=10),
+        library_ms=time_ms(_backward_timer(
+            lambda x: F.cross_entropy(x.float(), lab0, reduction="none"),
+            (logits,), gr), [()], iters=10),
+        bound_ms=bb_ms, bound_by=bb_by)
+    for name, r, by in ((label, fwd, fb_bytes), (label + " bwd", bwd, b_bytes)):
+        print(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{by / 1e9:.3f} GB)")
+    return fwd, bwd
+
+
+def _ce_entries(cfg) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     fwd = {"name": "fused_cross_entropy", "route": "triton",
            "source": "src/repro_torch/kernels/fused_ce.py",
@@ -830,52 +986,11 @@ def _ce_entries(cfg) -> list[dict]:
     cases = [(T_TRAIN, V, torch.bfloat16), (300, 1000, torch.bfloat16),
              (300, 1000, torch.float32), (64, V, torch.float32)]
     for T, V_, dtype in cases:
-        logits = (2 * torch.randn(T, V_, generator=g, device="cuda")).to(dtype)
-        labels = torch.randint(0, V_, (T,), generator=g, device="cuda")
-        labels[::7] = -1
-        gr = torch.rand(T, generator=g, device="cuda")
-        label = f"fused_cross_entropy [{T}, {V_}] {str(dtype).split('.')[-1]}"
-        nll, lse = ce.fused_cross_entropy(logits, labels)
-        err_f = check(label, nll, ref.cross_entropy_ref(logits, labels),
-                      CE_TOL[dtype])
-        dx = ce.fused_cross_entropy_bwd(logits, labels, lse, gr)
-        (want,) = _grads(lambda x: ref.cross_entropy_ref(x, labels),
-                         (logits,), gr, torch.float32)
-        err_b = _check_grads(label + " bwd", (dx,), (want,), BWD_TOL[dtype],
-                             ("logits",))
-        del want
-        if (T, V_) != (T_TRAIN, V):
-            continue
-        n = T * V_
-        lab0 = labels.clamp(min=0)    # F.cross_entropy has no label -1
-        fb_bytes = n * logits.element_size() + T * (8 + 4 + 4)
-        fb_ms, fb_by = bound(fb_bytes, 4 * n, FP32_FLOPS)
-        fwd.update(
-            max_abs_err=err_f,
-            ms=time_ms(ce.fused_cross_entropy, [(logits, labels)], iters=10),
-            plain_ms=time_ms(ref.cross_entropy_ref, [(logits, labels)],
-                             iters=10),
-            library_ms=time_ms(lambda x, y: F.cross_entropy(
-                x.float(), y, reduction="none"), [(logits, lab0)], iters=10),
-            bound_ms=fb_ms, bound_by=fb_by, shape=[T, V_])
-        b_bytes = 2 * n * logits.element_size() + T * (8 + 4 + 4)
-        bb_ms, bb_by = bound(b_bytes, 4 * n, FP32_FLOPS)
-        bwd.update(
-            max_abs_err=err_b,
-            ms=time_ms(lambda: ce.fused_cross_entropy_bwd(logits, labels, lse,
-                                                          gr), [()], iters=10),
-            plain_ms=time_ms(_backward_timer(
-                lambda x: ref.cross_entropy_ref(x, labels), (logits,), gr),
-                [()], iters=10),
-            library_ms=time_ms(_backward_timer(
-                lambda x: F.cross_entropy(x.float(), lab0, reduction="none"),
-                (logits,), gr), [()], iters=10),
-            bound_ms=bb_ms, bound_by=bb_by, shape=[T, V_])
-        for e, by in ((fwd, fb_bytes), (bwd, b_bytes)):
-            print(f"  time {e['name']} [{T}, {V_}]: kernel {e['ms']:.4f} ms, "
-                  f"plain {e['plain_ms']:.4f} ms, library "
-                  f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-                  f"({e['bound_by']}, {by / 1e9:.3f} GB)")
+        train = (T, V_) == (T_TRAIN, V)
+        f, b = _ce_rows("", T, V_, dtype, g, train)
+        if train:
+            fwd.update(f)
+            bwd.update(b)
     return [fwd, bwd]
 
 
@@ -958,6 +1073,121 @@ def _checks_at(cfg) -> dict[str, dict]:
     return out
 
 
+def _family_rows(entries: list[dict]) -> None:
+    """Every kernel of the whisper-base and llava-next-34b paths (phases 5
+    and 6) against its plain version in bf16 at the shapes those paths give
+    it, the prefill, encoder, cross-attention, norm and loss shapes timed
+    too (the Sq != Sk backward also checked in float32).  Each row goes
+    into its kernel's entry under the cell's name and the row's role."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    by = {e["name"]: e for e in entries}
+    flash, bwd = by["flash_attention"], by["flash_attention_bwd"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    serves, trains = {s[0]: s for s in SERVES}, {t[0]: t for t in TRAINS}
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    def flash_check(label, q, k, v, causal) -> dict:
+        return {"max_abs_err": check(
+            label, ops.flash_attention(q, k, v, causal=causal),
+            _flash_plain(q, k, v, causal), FLASH_TOL[q.dtype]),
+            "shape": list(q.shape), "kv_shape": list(k.shape)}
+
+    def norm_check(label, x, scale, eps) -> dict:
+        return {"max_abs_err": check(
+            f"rmsnorm {label} {list(x.shape)} bf16", ops.rmsnorm(x, scale, eps),
+            ref.rmsnorm_ref(x, scale, eps), RMSNORM_TOL),
+            "shape": list(x.shape)}
+
+    # whisper-base: MHA at hd 64; serve 16 x (1500 frames, 224 tokens),
+    # train 16 x (1500 frames, 448 tokens).
+    cfg = get_config("whisper-base")
+    name, H, hd = cfg.name, cfg.n_heads, cfg.hd
+    D, eps = cfg.d_model, cfg.norm_eps
+    _, Bs, P, _, Fs = serves[name]
+    _, _, Bt, St, Ft = trains[name]
+
+    def qkv(B, Sq, Sk, dtype=bf16):
+        return (randn(B, Sq, H, hd, dtype=dtype),
+                randn(B, Sk, H, hd, dtype=dtype),
+                randn(B, Sk, H, hd, dtype=dtype))
+
+    pre = f"flash_attention {name}"
+    flash[f"{name} encoder"] = _flash_row(
+        f"{pre} encoder B{Bs} S{Fs} H{H} hd{hd} bf16 non-causal",
+        lambda: qkv(Bs, Fs, Fs), False, 2)
+    flash[f"{name} cross"] = _flash_row(
+        f"{pre} cross B{Bs} Sq{P} Sk{Fs} H{H} hd{hd} bf16 non-causal",
+        lambda: qkv(Bs, P, Fs), False, 2)
+    flash[f"{name} decoder"] = flash_check(
+        f"{pre} decoder B{Bs} S{P} bf16 causal", *qkv(Bs, P, P), True)
+    flash[f"{name} decode cross"] = flash_check(
+        f"{pre} decode cross B{Bs} Sq1 Sk{Fs} bf16 non-causal",
+        *qkv(Bs, 1, Fs), False)
+    pre = f"flash_attention_bwd {name}"
+    for role, Sq, Sk, causal, dtype, timed in (
+            ("cross", St, Ft, False, bf16, True),
+            ("cross float32", St, Ft, False, torch.float32, False),
+            ("encoder", Ft, Ft, False, bf16, False),
+            ("decoder", St, St, True, bf16, False)):
+        label = (f"{pre} {role} B{Bt} Sq{Sq} Sk{Sk} H{H} hd{hd} "
+                 f"{str(dtype).split('.')[-1]} "
+                 f"{'causal' if causal else 'non-causal'}")
+        q, k, v = qkv(Bt, Sq, Sk, dtype)
+        bwd[f"{name} {role}"] = _flash_bwd_row(
+            label, q, k, v, randn(Bt, Sq, H, hd, dtype=dtype), causal, 0,
+            timed)
+        del q, k, v
+    scale = (1 + 0.1 * randn(D, dtype=torch.float32)).to(bf16)
+    by["rmsnorm"][f"{name} encoder"] = _rmsnorm_row(
+        f"{name} encoder", randn(Bs, Fs, D), scale, eps, 2)
+    by["rmsnorm"][f"{name} decode"] = norm_check(
+        f"{name} decode", randn(Bs, 1, D), scale, eps)
+    by["rmsnorm_bwd"][f"{name} encoder"] = _rmsnorm_bwd_row(
+        f"{name} encoder ", (Bt, Ft, D), bf16, g, eps, True)
+    f, b = _ce_rows(f"{name} ", Bt * St, cfg.vocab_size, bf16, g, True)
+    by["fused_cross_entropy"][f"{name} train"] = f
+    by["fused_cross_entropy_bwd"][f"{name} train"] = b
+    torch.cuda.empty_cache()
+
+    # llava-next-34b: GQA 56/8 at hd 128; serve 4 x (2880 patches + 128
+    # tokens), train 2 x (2880 + 1216).
+    cfg = get_config("llava-next-34b")
+    name, H, KV, hd = cfg.name, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    D, eps, N = cfg.d_model, cfg.norm_eps, cfg.n_prefix_tokens
+    _, Bs, P, _, _ = serves[name]
+    _, _, Bt, St, _ = trains[name]
+    Ss, Stt = N + P, N + St
+
+    def gqa(B, S):
+        return randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+
+    flash[f"{name} prefill"] = _flash_row(
+        f"flash_attention {name} prefill B{Bs} S{Ss} H{H} KV{KV} hd{hd} bf16 "
+        f"causal", lambda: gqa(Bs, Ss), True, 1, iters=5)
+    torch.cuda.empty_cache()
+    q, k, v = gqa(Bt, Stt)
+    bwd[f"{name} train"] = _flash_bwd_row(
+        f"flash_attention_bwd {name} train B{Bt} S{Stt} H{H} KV{KV} hd{hd} "
+        f"bf16 causal", q, k, v, randn(Bt, Stt, H, hd), True, 0, False)
+    del q, k, v
+    torch.cuda.empty_cache()
+    scale = (1 + 0.1 * randn(D, dtype=torch.float32)).to(bf16)
+    by["rmsnorm"][f"{name} prefill"] = _rmsnorm_row(
+        f"{name} prefill", randn(Bs, Ss, D), scale, eps, 1)
+    by["rmsnorm"][f"{name} decode"] = norm_check(
+        f"{name} decode", randn(Bs, 1, D), scale, eps)
+    by["rmsnorm_bwd"][f"{name} train"] = _rmsnorm_bwd_row(
+        f"{name} train ", (Bt, Stt, D), bf16, g, eps, True)
+    f, b = _ce_rows(f"{name} ", Bt * St, cfg.vocab_size, bf16, g, True)
+    by["fused_cross_entropy"][f"{name} train"] = f
+    by["fused_cross_entropy_bwd"][f"{name} train"] = b
+
+
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     from repro_torch.configs import get_config
 
@@ -978,6 +1208,8 @@ def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     for name, c in _checks_at(moe_cfg).items():
         next(e for e in entries if e["name"] == name)[moe_cfg.name] = c
     torch.cuda.empty_cache()
+    _family_rows(entries)
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -985,10 +1217,19 @@ def _expected_launches(cfg, steps: int) -> dict[str, int]:
     """Launches of one prefill and ``steps`` decode steps: flash attention
     and the SSD scan on prefill only, RMSNorm on every pass (each layer's
     mixer norm, FFN norm and Mamba gated norm, and the final norm); no
-    backward or cross-entropy kernel."""
+    backward or cross-entropy kernel.  The encoder-decoder: prefill runs
+    the encoder (a flash attention and two norms per layer, its final norm)
+    and the decoder (self- and cross-attention, three norms per layer, the
+    final norm); each decode step the decoder again, its cross-attention
+    through flash attention."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import n_units, unit_layout
 
+    if cfg.family == "encdec":
+        E, L = cfg.n_enc_layers, cfg.n_layers
+        return {**dict.fromkeys(ops.KERNELS, 0),
+                "flash_attention": E + 2 * L + L * steps,
+                "rmsnorm": 2 * E + 1 + (3 * L + 1) * (1 + steps)}
     layout, U = unit_layout(cfg), n_units(cfg)
     n_attn = U * sum(s["mixer"] == "attn" for s in layout)
     n_mamba = U * sum(s["mixer"] == "mamba" for s in layout)
@@ -1003,10 +1244,23 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
     """Launches of ``steps`` train steps of a dense model under per-unit
     activation checkpointing: each layer's flash attention and norms run
     twice forward (the pass and the backward's recompute) and once
-    backward, the final norm and the cross-entropy once each way."""
+    backward, the final norm and the cross-entropy once each way.  The
+    encoder-decoder checkpoints its decoder layers only: the encoder's
+    attention and norms (and its final norm) run once each way, the
+    decoder's two attentions and three norms twice forward and once
+    backward."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import n_units, unit_layout
 
+    if cfg.family == "encdec":
+        E, L = cfg.n_enc_layers, cfg.n_layers
+        per_step = {**dict.fromkeys(ops.KERNELS, 0),
+                    "flash_attention": E + 4 * L,
+                    "flash_attention_bwd": E + 2 * L,
+                    "rmsnorm": 2 * E + 1 + 6 * L + 1,
+                    "rmsnorm_bwd": 2 * E + 1 + 3 * L + 1,
+                    "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
+        return {k: v * steps for k, v in per_step.items()}
     layout, U = unit_layout(cfg), n_units(cfg)
     n_attn = U * sum(s["mixer"] == "attn" for s in layout)
     n_norms = cfg.n_layers + U * sum(bool(s["ffn"]) for s in layout)
@@ -1018,18 +1272,24 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
     return {k: v * steps for k, v in per_step.items()}
 
 
-REFERENCE_MODELS = (  # (arch, smoke overrides, prompt)
-    ("qwen2-7b", {"head_dim": 128, "d_model": 256, "n_kv_heads": 2}, 70),
-    ("qwen2-7b", {"sliding_window": 32, "n_kv_heads": 2}, 100),
+REFERENCE_MODELS = (  # (arch, smoke overrides, prompt, encoder frames)
+    ("qwen2-7b", {"head_dim": 128, "d_model": 256, "n_kv_heads": 2}, 70,
+     None),
+    ("qwen2-7b", {"sliding_window": 32, "n_kv_heads": 2}, 100, None),
     # a capacity that binds: 17 slots per expert and row for ~35 picks
-    ("mixtral-8x22b", {"capacity_factor": 0.5}, 70),
+    ("mixtral-8x22b", {"capacity_factor": 0.5}, 70, None),
     # the real SSD head sizes; 100 = 64 + a partial chunk of 36
     ("mamba2-370m", {"ssm_head_dim": 64, "ssm_state": 128, "ssm_chunk": 64},
-     100),
-    ("jamba-1.5-large-398b", {"n_experts": 0}, 70),
-    ("jamba-1.5-large-398b", {}, 70),
+     100, None),
+    ("jamba-1.5-large-398b", {"n_experts": 0}, 70, None),
+    ("jamba-1.5-large-398b", {}, 70, None),
+    # 100 frames against 40 tokens (Sq != Sk, not a multiple of 64)
+    ("whisper-base", {}, 40, 100),
+    # 8 patch rows ahead of the prompt
+    ("llava-next-34b", {}, 40, None),
 )
-TRAIN_REFERENCE_MODELS = REFERENCE_MODELS[:3]   # the attention-only ones
+# The attention-only ones.
+TRAIN_REFERENCE_MODELS = REFERENCE_MODELS[:3] + REFERENCE_MODELS[6:]
 
 
 @contextlib.contextmanager
@@ -1063,6 +1323,18 @@ def _to(device):
     return lambda x: x.to(device) if isinstance(x, torch.Tensor) else x
 
 
+def _train_batch(t, step: int, frames: int | None) -> dict:
+    """The trainer's pipeline batch at ``step`` (an encoder's frames as many
+    as its tokens, as the JAX pipeline draws them), its frames redrawn with
+    ``frames`` rows from the seed and the step where given."""
+    b = t.pipeline.batch_at(step)
+    if frames:
+        B, _, D = b["frames"].shape
+        b["frames"] = np.random.default_rng((SEED, step)).standard_normal(
+            (B, frames, D)).astype(np.float32)
+    return b
+
+
 def _loss_grads(model, params, batch: dict, device) -> tuple:
     from repro_torch.tree import leaves
 
@@ -1074,24 +1346,27 @@ def _loss_grads(model, params, batch: dict, device) -> tuple:
 
 
 def _reference_train() -> None:
-    """Two float32 qwen2 smoke models and the dropping mixtral one: one
-    batch's gradients and three train steps on the card (kernels) against
-    the CPU (plain versions), from the same parameters."""
+    """Two float32 qwen2 smoke models, the dropping mixtral one, whisper
+    (its frames longer than its tokens, so the float32 Sq != Sk backward
+    runs) and llava (with its prefix): one batch's gradients and three
+    train steps on the card (kernels) against the CPU (plain versions),
+    from the same parameters."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.tree import tree_map
 
-    for arch, overrides, S in TRAIN_REFERENCE_MODELS:
+    for arch, overrides, S, frames in TRAIN_REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
-        label = f"reference train {cfg.name} {overrides} 2x{S}"
+        label = (f"reference train {cfg.name} {overrides} 2x{S}"
+                 + (f" frames {frames}" if frames else ""))
         t_cpu, t_gpu = (train.setup(cfg, steps=REF_TRAIN_STEPS, batch=2,
                                     seq=S, seed=SEED, device=d)
                         for d in ("cpu", "cuda"))
         s_cpu = t_cpu.init()
         s_gpu = tree_map(_to("cuda"), s_cpu)
 
-        batch = t_cpu.pipeline.batch_at(0)
+        batch = _train_batch(t_cpu, 0, frames)
         batch["labels"][0, :5] = -1                  # ignored positions
         g_cpu = _loss_grads(t_cpu.model, s_cpu.params, batch, "cpu")
         ops.reset_launch_counts()
@@ -1113,7 +1388,7 @@ def _reference_train() -> None:
 
         ops.reset_launch_counts()
         for step in range(REF_TRAIN_STEPS):
-            b = t_cpu.pipeline.batch_at(step)
+            b = _train_batch(t_cpu, step, frames)
             s_cpu, m_cpu = t_cpu.train_step(s_cpu, b)
             s_gpu, m_gpu = t_gpu.train_step(s_gpu, b)
             for key in ("loss", "ce", "aux"):
@@ -1137,7 +1412,7 @@ def _reference_loop() -> None:
     from repro_torch.launch import train
     from repro_torch.train import loop
 
-    arch, overrides, S = TRAIN_REFERENCE_MODELS[0]
+    arch, overrides, S, _ = TRAIN_REFERENCE_MODELS[0]
     cfg = get_config(arch).smoke(**overrides)
     t = train.setup(cfg, steps=6, batch=2, seq=S, seed=SEED, device="cuda")
     with tempfile.TemporaryDirectory() as d:
@@ -1165,23 +1440,24 @@ def _reference_loop() -> None:
 def phase_reference() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
     from repro_torch.models import get_model
     from repro_torch.tree import tree_map
 
     print("[4/8] reference: float32 models on the card vs the CPU")
-    for arch, overrides, S in REFERENCE_MODELS:
+    for arch, overrides, S, frames in REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
         cpu, gpu = get_model(cfg, device="cpu"), get_model(cfg, device="cuda")
         p_cpu = cpu.init(SEED)
         p_gpu = tree_map(_to("cuda"), p_cpu)
-        tokens = torch.randint(0, cfg.vocab_size, (2, S),
-                               generator=torch.Generator().manual_seed(SEED))
-        max_seq = S + 4
+        batch = serve.prompt_batch(cfg, 2, S, SEED, "cpu", frames=frames)
+        tokens = batch["tokens"]
+        max_seq = serve.context_len(batch) + 4
         with _router_logits() as r_cpu:
-            lc, cc = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq)
+            lc, cc = cpu.prefill(p_cpu, batch, max_seq)
         ops.reset_launch_counts()
         with _router_logits() as r_gpu:
-            lg, cg = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq)
+            lg, cg = gpu.prefill(p_gpu, tree_map(_to("cuda"), batch), max_seq)
         counts, want = ops.launch_counts(), _expected_launches(cfg, 0)
         if counts != want:
             fail(f"{cfg.name} prefill launches {counts}, expected {want}")
@@ -1207,7 +1483,8 @@ def phase_reference() -> None:
     _reference_loop()
 
 
-def phase_serve(arch: str, prompt: int, layers: int) -> dict:
+def phase_serve(arch: str, batch: int, prompt: int, layers: int,
+                frames: int | None) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import profile_serve, serve
@@ -1217,9 +1494,13 @@ def phase_serve(arch: str, prompt: int, layers: int) -> dict:
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
-    print(f"[5/8] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.dtype}, batch {BATCH}, prompt {prompt},"
-          f" gen {GEN}")
+    print(f"[5/8] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+          + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
+             if frames else "")
+          + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
+             if cfg.n_prefix_tokens else "")
+          + f", d_model {cfg.d_model}, {cfg.dtype}, batch {batch}, prompt "
+          f"{prompt}, gen {GEN}")
     model = get_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -1227,24 +1508,27 @@ def phase_serve(arch: str, prompt: int, layers: int) -> dict:
     n_params = sum(p.numel() for p in leaves(params))
     print(f"  init {n_params / 1e9:.3f} B parameters on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    tokens = serve.prompt_tokens(cfg.vocab_size, BATCH, prompt, SEED, "cuda")
+    inputs = serve.prompt_batch(cfg, batch, prompt, SEED, "cuda",
+                                frames=frames)
     with _router_logits() as router:    # warm-up: cuBLAS, allocator
-        serve.generate(model, params, tokens, 2)
+        serve.generate(model, params, inputs, 2)
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    r = serve.generate(model, params, tokens, GEN)
+    r = serve.generate(model, params, inputs, GEN)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     steps = r["decode_steps"]
     stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
-             "params_b": n_params / 1e9, "prompt": prompt,
+             "params_b": n_params / 1e9, "batch": batch, "prompt": prompt,
+             "context": serve.context_len(inputs), "frames": frames,
              "prefill_ms": r["prefill_s"] * 1e3,
              "decode_ms_per_step": r["decode_s"] * 1e3 / steps,
-             "decode_tok_s": BATCH * steps / r["decode_s"],
+             "decode_tok_s": batch * steps / r["decode_s"],
              "peak_mem_gb": peak / 1e9, "launches": counts}
-    print(f"  prefill {BATCH}x{prompt}: {stats['prefill_ms']:.2f} ms")
+    print(f"  prefill {batch}x{stats['context']}: "
+          f"{stats['prefill_ms']:.2f} ms")
     print(f"  decode: {steps} steps, {stats['decode_ms_per_step']:.3f} ms/step, "
           f"{stats['decode_tok_s']:.1f} tok/s")
     print(f"  peak memory {stats['peak_mem_gb']:.2f} GB; launches {counts}")
@@ -1254,19 +1538,19 @@ def phase_serve(arch: str, prompt: int, layers: int) -> dict:
         prefill = [x for x in router if x.shape[1] == prompt]
         stats["moe_prefill"] = {
             "capacity": capacity(cfg, prompt),
-            "pairs": len(prefill) * BATCH * prompt * cfg.experts_per_token,
+            "pairs": len(prefill) * batch * prompt * cfg.experts_per_token,
             "dropped_pairs": _dropped(prefill, cfg)}
         print(f"  prefill routing: capacity {capacity(cfg, prompt)} per row "
               f"and expert; {stats['moe_prefill']['dropped_pairs']} of "
               f"{stats['moe_prefill']['pairs']} (token, choice) pairs dropped")
 
-    # Flash attention and the SSD scan launch on prefill only, so their
-    # totals equal one prefill's: none ran in decode.
+    # Flash attention (but the encoder-decoder's cross-attention) and the
+    # SSD scan launch on prefill only: none of those ran in decode.
     want = _expected_launches(cfg, steps)
     if counts != want:
         fail(f"launch counts {counts}, the path implies {want}")
     seq = r["tokens"]
-    if seq.shape != (BATCH, GEN):
+    if seq.shape != (batch, GEN):
         fail(f"tokens shape {tuple(seq.shape)}")
     if not bool(r["finite"]):
         fail("non-finite logits")
@@ -1274,7 +1558,7 @@ def phase_serve(arch: str, prompt: int, layers: int) -> dict:
         fail("token ids out of range")
     print(f"  tokens[0, :8] = {seq[0, :8].tolist()}")
 
-    stats["traced"] = profile_serve.profile_generate(model, params, tokens,
+    stats["traced"] = profile_serve.profile_generate(model, params, inputs,
                                                      PROFILE_DECODE_STEPS)
     for phase, tr in stats["traced"].items():
         print(f"  traced {phase}"
@@ -1287,35 +1571,52 @@ def phase_serve(arch: str, prompt: int, layers: int) -> dict:
     return stats
 
 
-def _train_model_flops(cfg, params) -> tuple[float, float, float]:
-    """Model FLOPs of one train step: 6 per active parameter per token (all
-    but the input embedding, a gather; of a MoE layer's experts, the k of E
-    each token is routed to), and three times the forward's causal
-    attention (4 * B * H * hd per visible query-key pair per layer).
-    Returns (total, attention, expert products as executed): each expert
-    runs its capacity buffer of C rows per sequence whatever the routing,
-    6 FLOPs per expert parameter per buffer row (the recompute not
-    counted), about the capacity factor times the active expert FLOPs."""
+def _train_model_flops(cfg, params, batch: dict) -> tuple[float, float,
+                                                         float]:
+    """Model FLOPs of one train step on ``batch``: 6 per active parameter
+    per row it multiplies (every position for most; the text positions for
+    the LM head; the encoder's frames for the encoder's layers and the
+    cross-attention's K/V projections; of a MoE layer's experts, the k of E
+    each token is routed to; the input embedding, a gather, none), and three
+    times the forward's attention (4 * B * H * hd per visible query-key
+    pair per layer: causal over the positions, the encoder's frames against
+    themselves, the text against the frames).  Returns (total, attention,
+    expert products as executed): each expert runs its capacity buffer of C
+    rows per sequence whatever the routing, 6 FLOPs per expert parameter
+    per buffer row (the recompute not counted), about the capacity factor
+    times the active expert FLOPs."""
     from repro_torch.models.moe import capacity
     from repro_torch.tree import leaves_with_path
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    B, St = batch["tokens"].shape
+    S = St + (batch["prefix"].shape[1] if "prefix" in batch else 0)
+    Se = batch["frames"].shape[1] if "frames" in batch else 0
     dense = experts = 0
     for path, p in leaves_with_path(params):
         if "moe" in path and path[-1] != "router":
             experts += p.numel()
+        elif path == ("lm_head",):
+            dense += 6 * p.numel() * B * St
+        elif path[0] in ("enc_layers", "enc_norm") or path[-2:] in (
+                ("cross_attn", "wk"), ("cross_attn", "wv")):
+            dense += 6 * p.numel() * B * Se
         elif path != ("embed",):
-            dense += p.numel()
-    attn = 3 * cfg.n_layers * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * (
-        _flash_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.sliding_window))
+            dense += 6 * p.numel() * B * S
+    if cfg.family == "encdec":
+        pairs = (cfg.n_enc_layers * Se * Se
+                 + cfg.n_layers * (_flash_pairs(St, St, True, 0) + St * Se))
+    else:
+        pairs = cfg.n_layers * _flash_pairs(S, S, True, cfg.sliding_window)
+    attn = 3 * 4 * B * cfg.n_heads * cfg.hd * pairs
     if not experts:
-        return 6 * dense * tokens + attn, attn, 0.0
-    active = dense + experts * cfg.experts_per_token / cfg.n_experts
-    executed = 6 * experts * TRAIN_BATCH * capacity(cfg, TRAIN_SEQ)
-    return 6 * active * tokens + attn, attn, executed
+        return dense + attn, attn, 0.0
+    active = 6 * experts * cfg.experts_per_token / cfg.n_experts * B * S
+    executed = 6 * experts * B * capacity(cfg, S)
+    return dense + active + attn, attn, executed
 
 
-def phase_train(arch: str, layers: int) -> dict:
+def phase_train(arch: str, layers: int, batch: int, seq: int,
+                frames: int | None) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import profile_serve, train
@@ -1323,19 +1624,25 @@ def phase_train(arch: str, layers: int) -> dict:
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"[6/8] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, batch "
-          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, AdamW, {TRAIN_STEPS} timed steps")
-    t = train.setup(cfg, steps=TRAIN_STEPS + 2, batch=TRAIN_BATCH,
-                    seq=TRAIN_SEQ, seed=SEED, device="cuda")
+    # Positions each step runs through the decoder: the text tokens and a
+    # VLM's prefix rows.
+    tokens = batch * (seq + cfg.n_prefix_tokens)
+    print(f"[6/8] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+          + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
+             if frames else "")
+          + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
+             if cfg.n_prefix_tokens else "")
+          + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"batch {batch} x seq {seq}, AdamW, {TRAIN_STEPS} timed steps")
+    t = train.setup(cfg, steps=TRAIN_STEPS + 2, batch=batch, seq=seq,
+                    seed=SEED, device="cuda")
     t0 = time.perf_counter()
     state = t.init()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in leaves(state.params))
     print(f"  init {n_params / 1e9:.3f} B parameters and fp32 moments on the "
           f"card in {time.perf_counter() - t0:.2f} s")
-    batches = [t.pipeline.batch_at(i) for i in range(TRAIN_STEPS + 2)]
+    batches = [_train_batch(t, i, frames) for i in range(TRAIN_STEPS + 2)]
     t0 = time.perf_counter()
     state, m = t.train_step(state, batches[0])       # warm-up: cuBLAS, allocator
     losses = [float(m["loss"])]
@@ -1365,10 +1672,12 @@ def phase_train(arch: str, layers: int) -> dict:
     adamw_ms = time_ms(lambda: t.optimizer.update(
         grads, state.opt, state.params, t.model.decays), [()], iters=2,
         warmup=1)
-    flops, attn_flops, expert_flops = _train_model_flops(cfg, state.params)
+    flops, attn_flops, expert_flops = _train_model_flops(cfg, state.params,
+                                                         batches[0])
     ms = 1e3 * sum(step_s) / len(step_s)
     stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
-             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "batch": batch, "seq": seq, "frames": frames,
+             "prefix": cfg.n_prefix_tokens,
              "params_b": n_params / 1e9,
              "ms_per_step": ms, "step_ms": [1e3 * x for x in step_s],
              "tokens_per_s": tokens / (ms / 1e3),
@@ -1535,12 +1844,12 @@ def main() -> None:
     kernels = phase_kernels(get_config("qwen2-7b"), built)
     phase_reference()
     serves = {}
-    for arch, prompt, layers in SERVES:
-        serves[arch] = phase_serve(arch, prompt, layers)
+    for arch, *shape in SERVES:
+        serves[arch] = phase_serve(arch, *shape)
         torch.cuda.empty_cache()
     trains = {}
-    for arch, layers in TRAINS:
-        trains[arch] = phase_train(arch, layers)
+    for arch, *shape in TRAINS:
+        trains[arch] = phase_train(arch, *shape)
         torch.cuda.empty_cache()
     engine = phase_engine()
     paths = {**{f"serve {arch}": st["launches"] for arch, st in serves.items()},

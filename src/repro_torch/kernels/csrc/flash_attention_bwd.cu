@@ -1,9 +1,10 @@
 // Flash attention backward for Hopper (sm_90a), CUDA C++.
 //
-// The gradient of the forward in csrc/flash_attention.cu for
-// self-attention (Sq == Sk): dQ, dK and dV from q, k, v, the forward's
-// output o, the upstream gradient dO and the forward's per-row log-sum-exp
-// lse.  The Pallas TPU kernel repro/kernels/flash_attention.py is
+// The gradient of the forward in csrc/flash_attention.cu: dQ, dK and dV of
+// self-attention (Sq == Sk), and of attention without the causal mask over
+// keys of another length (Sq != Sk: cross-attention), from q, k, v, the
+// forward's output o, the upstream gradient dO and the forward's per-row
+// log-sum-exp lse.  The Pallas TPU kernel repro/kernels/flash_attention.py is
 // forward-only (JAX differentiates its jnp attention), so this kernel has no
 // TPU counterpart; it is the backward of the port's autograd.Function
 // (kernels/ops.py).  The probabilities are recomputed, never stored:
@@ -13,14 +14,16 @@
 //   dQ = scale * dS K,  dK = scale * dS^T Q.
 // GQA: key/value head j serves query heads j*G .. j*G + G-1 (G = H / KV),
 // and its dK/dV sum over those heads.  Causal and sliding-window masks as
-// in the forward; any sequence length (the ragged edge is masked).  Masked
-// entries get P = 0 from a predicate, so a row with no live key (lse =
+// in the forward, queries right-aligned to the keys (query row i sits at
+// key position i + Sk - Sq); the causal mask needs Sq == Sk (the launcher
+// raises otherwise).  Any sequence lengths (the ragged edges are masked).
+// Masked entries get P = 0 from a predicate, so a row with no live key (lse =
 // -1e30 + log(1e-30)) never forms exp(inf) or inf - inf.
 //
 // Design: two passes from one launch call, both without atomics, so the
 // same inputs give bit-equal gradients.
 //  1. dQ pass, one block per (query tile, query head, batch row): stages Q
-//     and dO, computes D for its rows (written to a [B, H, S] fp32 buffer
+//     and dO, computes D for its rows (written to a [B, H, Sq] fp32 buffer
 //     for pass 2), then walks the live key tiles as the forward does and
 //     accumulates dQ in registers.
 //  2. dK/dV pass, one block per (key tile, KV head, batch row): keeps its K
@@ -62,9 +65,10 @@
 // would do five: 841 GFLOP executed, 1.4x the bound's count, the price of
 // deterministic gradients without atomics.
 //
-// Layout: q/o/dO/dQ [B, S, H, hd], k/v/dK/dV [B, S, KV, hd], each with its
+// Layout: q/o/dO/dQ [B, Sq, H, hd], k/v/dK/dV [B, Sk, KV, hd], each with its
 // own (batch, sequence, head) strides in elements and head_dim contiguous;
-// lse and D contiguous [B, H, S] fp32.
+// q/o/dO/dQ hold Sq rows, k/v/dK/dV Sk rows; lse and D contiguous
+// [B, H, Sq] fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,12 +91,12 @@ struct Params {
   const void* v;
   const void* o;
   const void* dout;
-  const float* lse;  // [B, H, S]
-  float* delta;      // [B, H, S], written by pass 1, read by pass 2
+  const float* lse;  // [B, H, Sq]
+  float* delta;      // [B, H, Sq], written by pass 1, read by pass 2
   void* dq;
   void* dk;
   void* dv;
-  int B, H, KV, S;
+  int B, H, KV, Sq, Sk;
   int64_t sb[N_TENSORS], ss[N_TENSORS], sh[N_TENSORS];
   float scale;
   int causal, window;
@@ -135,10 +139,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
+// Query row qi sees key kj (queries right-aligned to the keys).
 __device__ __forceinline__ bool is_live(const Params& p, int qi, int kj) {
-  if (qi >= p.S || kj >= p.S) return false;
-  if (p.causal && kj > qi) return false;
-  if (p.window && kj <= qi - p.window) return false;
+  if (qi >= p.Sq || kj >= p.Sk) return false;
+  const int pos = qi + p.Sk - p.Sq;
+  if (p.causal && kj > pos) return false;
+  if (p.window && kj <= pos - p.window) return false;
   return true;
 }
 
@@ -194,7 +200,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.S;
+  const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
 
   const T* q = static_cast<const T*>(p.q) + b * p.sb[Q] + h * p.sh[Q];
   const T* k = static_cast<const T*>(p.k) + b * p.sb[K] + kvh * p.sh[K];
@@ -203,8 +209,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) + b * p.sb[DO] + h * p.sh[DO];
   T* dq = static_cast<T*>(p.dq) + b * p.sb[DQ] + h * p.sh[DQ];
 
-  load_tile<T, HD>(Qs, q, p.ss[Q], q0, p.S);
-  load_tile<T, HD>(dOs, dout, p.ss[DO], q0, p.S);
+  load_tile<T, HD>(Qs, q, p.ss[Q], q0, p.Sq);
+  load_tile<T, HD>(dOs, dout, p.ss[DO], q0, p.Sq);
   __syncthreads();
   {
     // D = rowsum(dO * O): four neighbouring lanes per row, combined by
@@ -212,15 +218,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Params p) {
     const int r = tid / 4, part = tid % 4;
     const int qi = q0 + r;
     float acc = 0.f;
-    if (qi < p.S)
+    if (qi < p.Sq)
       for (int d = part; d < HD; d += 4)
         acc = fmaf(dOs[r * LD + d], to_float(o[qi * p.ss[O] + d]), acc);
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) {
       D_s[r] = acc;
-      lse_s[r] = qi < p.S ? p.lse[rows + qi] : 0.f;
-      if (qi < p.S) p.delta[rows + qi] = acc;
+      lse_s[r] = qi < p.Sq ? p.lse[rows + qi] : 0.f;
+      if (qi < p.Sq) p.delta[rows + qi] = acc;
     }
   }
 
@@ -237,17 +243,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Params p) {
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
   // Key tiles any row of this query tile sees, as in the forward.
-  const int q_last = min(q0 + BLOCK, p.S) - 1;
-  const int k_lo = p.window ? max(0, q0 - p.window + 1) : 0;
-  const int k_hi = p.causal ? q_last : p.S - 1;
+  const int off = p.Sk - p.Sq;
+  const int q_last = min(q0 + BLOCK, p.Sq) - 1;
+  const int k_lo = p.window ? max(0, q0 + off - p.window + 1) : 0;
+  const int k_hi = p.causal ? min(p.Sk - 1, q_last + off) : p.Sk - 1;
   const int t_lo = k_lo / BLOCK;
   const int t_end = k_hi >= k_lo ? k_hi / BLOCK + 1 : t_lo;
 
   for (int t = t_lo; t < t_end; ++t) {
     const int k0 = t * BLOCK;
     __syncthreads();  // D/lse staged; the previous tile's K and dS consumed
-    load_tile<T, HD>(Ks, k, p.ss[K], k0, p.S);
-    load_tile<T, HD>(Vs, v, p.ss[V], k0, p.S);
+    load_tile<T, HD>(Ks, k, p.ss[K], k0, p.Sk);
+    load_tile<T, HD>(Vs, v, p.ss[V], k0, p.Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -285,7 +292,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int qi = q0 + ay * RPT + i;
-    if (qi >= p.S) continue;
+    if (qi >= p.Sq) continue;
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
       dq[qi * p.ss[DQ] + ax + TX * j] = from_float<T>(acc[i][j] * p.scale);
@@ -316,8 +323,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(Params p) {
   T* dk = static_cast<T*>(p.dk) + b * p.sb[DK] + kvh * p.sh[DK];
   T* dv = static_cast<T*>(p.dv) + b * p.sb[DV] + kvh * p.sh[DV];
 
-  load_tile<T, HD>(Ks, k, p.ss[K], k0, p.S);
-  load_tile<T, HD>(Vs, v, p.ss[V], k0, p.S);
+  load_tile<T, HD>(Ks, k, p.ss[K], k0, p.Sk);
+  load_tile<T, HD>(Vs, v, p.ss[V], k0, p.Sk);
 
   const int sx = tid % 16, sy = tid / 16;
   // Accumulator mapping: key rows ay*RPT + i, head_dim columns ax + TX*j.
@@ -333,27 +340,29 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(Params p) {
     for (int j = 0; j < CPT; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
   // Query tiles with a row that sees a key of this tile.
-  const int k_last = min(k0 + BLOCK, p.S) - 1;
-  const int q_lo = p.causal ? k0 : 0;
-  const int q_hi = p.window ? min(p.S - 1, k_last + p.window - 1) : p.S - 1;
+  const int off = p.Sk - p.Sq;
+  const int k_last = min(k0 + BLOCK, p.Sk) - 1;
+  const int q_lo = p.causal ? max(0, k0 - off) : 0;
+  const int q_hi =
+      p.window ? min(p.Sq - 1, k_last - off + p.window - 1) : p.Sq - 1;
   const int t_lo = q_lo / BLOCK;
   const int t_end = q_hi >= q_lo ? q_hi / BLOCK + 1 : t_lo;
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.S;
+    const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
     const T* q = static_cast<const T*>(p.q) + b * p.sb[Q] + h * p.sh[Q];
     const T* dout =
         static_cast<const T*>(p.dout) + b * p.sb[DO] + h * p.sh[DO];
     for (int t = t_lo; t < t_end; ++t) {
       const int q0 = t * BLOCK;
       __syncthreads();  // the previous tile's Q, dO, P and dS consumed
-      load_tile<T, HD>(Qs, q, p.ss[Q], q0, p.S);
-      load_tile<T, HD>(dOs, dout, p.ss[DO], q0, p.S);
+      load_tile<T, HD>(Qs, q, p.ss[Q], q0, p.Sq);
+      load_tile<T, HD>(dOs, dout, p.ss[DO], q0, p.Sq);
       if (tid < BLOCK) {
         const int qi = q0 + tid;
-        lse_s[tid] = qi < p.S ? p.lse[rows + qi] : 0.f;
-        D_s[tid] = qi < p.S ? p.delta[rows + qi] : 0.f;
+        lse_s[tid] = qi < p.Sq ? p.lse[rows + qi] : 0.f;
+        D_s[tid] = qi < p.Sq ? p.delta[rows + qi] : 0.f;
       }
       __syncthreads();
 
@@ -402,7 +411,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int kj = k0 + ay * RPT + i;
-    if (kj >= p.S) continue;
+    if (kj >= p.Sk) continue;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       dk[kj * p.ss[DK] + ax + TX * j] = from_float<T>(acc_dk[i][j] * p.scale);
@@ -423,13 +432,12 @@ int launch(const Params& p, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dkv_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (p.S + BLOCK - 1) / BLOCK;
-  flash_bwd_dq_kernel<T, HD>
-      <<<dim3(tiles, p.H, p.B), THREADS, dq_smem, stream>>>(p);
+  flash_bwd_dq_kernel<T, HD><<<dim3((p.Sq + BLOCK - 1) / BLOCK, p.H, p.B),
+                               THREADS, dq_smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<T, HD>
-      <<<dim3(tiles, p.KV, p.B), THREADS, dkv_smem, stream>>>(p);
+  flash_bwd_dkv_kernel<T, HD><<<dim3((p.Sk + BLOCK - 1) / BLOCK, p.KV, p.B),
+                                THREADS, dkv_smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -490,8 +498,8 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;  // longest rows first
   const int kvh = h / (p.H / p.KV);
   const int row0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: +0, +8
-  const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.S;
-  const fm::Mask mask{p.S, p.S, p.causal, p.window};
+  const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+  const fm::Mask mask{p.Sq, p.Sk, p.causal, p.window};
 
   const fm::bf16* q =
       static_cast<const fm::bf16*>(p.q) + b * p.sb[Q] + h * p.sh[Q];
@@ -508,11 +516,11 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
   int t_lo, t_end;
   mask.key_tiles(q0, BM, BN, &t_lo, &t_end);
 
-  fm::load_tile<BM, HD, THREADS, HDP>(Qs, q, p.ss[Q], q0, p.S);
-  fm::load_tile<BM, HD, THREADS, HDP>(dOs, dout, p.ss[DO], q0, p.S);
+  fm::load_tile<BM, HD, THREADS, HDP>(Qs, q, p.ss[Q], q0, p.Sq);
+  fm::load_tile<BM, HD, THREADS, HDP>(dOs, dout, p.ss[DO], q0, p.Sq);
   if (t_lo < t_end) {
-    fm::load_tile<BN, HD, THREADS, HDP>(Ks, k, p.ss[K], t_lo * BN, p.S);
-    fm::load_tile<BN, HD, THREADS, HDP>(Vs, v, p.ss[V], t_lo * BN, p.S);
+    fm::load_tile<BN, HD, THREADS, HDP>(Ks, k, p.ss[K], t_lo * BN, p.Sk);
+    fm::load_tile<BN, HD, THREADS, HDP>(Vs, v, p.ss[V], t_lo * BN, p.Sk);
   }
   fm::cp_async_commit();
   {
@@ -521,7 +529,7 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
     const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
     const int qi = q0 + r;
     float d = 0.f;
-    if (qi < p.S) {
+    if (qi < p.Sq) {
 #pragma unroll
       for (int c = part; c < HD / 8; c += 2) {
         const uint4 ov = *reinterpret_cast<const uint4*>(
@@ -542,7 +550,7 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (part == 0) {
       D_s[r] = d;
-      if (qi < p.S) p.delta[rows + qi] = d;
+      if (qi < p.Sq) p.delta[rows + qi] = d;
     }
   }
   __syncthreads();  // D_s is written
@@ -550,7 +558,7 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    lse2[r] = row < p.S ? p.lse[rows + row] * fm::LOG2E : 0.f;
+    lse2[r] = row < p.Sq ? p.lse[rows + row] * fm::LOG2E : 0.f;
     Dr[r] = D_s[row - q0];
   }
 
@@ -565,9 +573,9 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
     const int st = (t - t_lo) & 1;
     if (t + 1 < t_end) {
       fm::load_tile<BN, HD, THREADS, HDP>(Ks + (st ^ 1) * BN * HDP, k, p.ss[K],
-                                          (t + 1) * BN, p.S);
+                                          (t + 1) * BN, p.Sk);
       fm::load_tile<BN, HD, THREADS, HDP>(Vs + (st ^ 1) * BN * HDP, v, p.ss[V],
-                                          (t + 1) * BN, p.S);
+                                          (t + 1) * BN, p.Sk);
     }
     fm::cp_async_commit();
     fm::cp_async_wait<1>();  // Q, dO and tile t have landed
@@ -629,9 +637,12 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
     for (int kk = 0; kk < BN / 16; ++kk) fm::fence_operand(da[kk]);
     __syncthreads();  // stage st consumed before it is loaded again
   }
-  // The warp's own rows of the Q tile take its dQ.
+  // The warp's own rows of the Q tile take its dQ (after the tile's copy
+  // has landed, should the block have had no key tile).
+  fm::cp_async_wait<0>();
+  __syncthreads();
   fm::store_rows<BM, HD, HDP>(Qs, warp * 16, acc, p.scale, p.scale, dq,
-                              p.ss[DQ], q0 + warp * 16, p.S, lane);
+                              p.ss[DQ], q0 + warp * 16, p.Sq, lane);
 }
 
 template <int HD>
@@ -657,7 +668,7 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
   const int k0 = blockIdx.z * BK;  // causal: the first key tiles are longest
   const int G = p.H / p.KV;
   const int key0 = k0 + warp * 16 + (lane >> 2);  // this lane's keys: +0, +8
-  const fm::Mask mask{p.S, p.S, p.causal, p.window};
+  const fm::Mask mask{p.Sq, p.Sk, p.causal, p.window};
 
   const fm::bf16* k =
       static_cast<const fm::bf16*>(p.k) + b * p.sb[K] + kvh * p.sh[K];
@@ -680,20 +691,20 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
     const fm::bf16* dout =
         static_cast<const fm::bf16*>(p.dout) + b * p.sb[DO] + h * p.sh[DO];
     fm::load_tile<BQ, HD, THREADS, HDP>(Qs + st * BQ * HDP, q, p.ss[Q], q0,
-                                        p.S);
+                                        p.Sq);
     fm::load_tile<BQ, HD, THREADS, HDP>(dOs + st * BQ * HDP, dout, p.ss[DO],
-                                        q0, p.S);
-    const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.S;
+                                        q0, p.Sq);
+    const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
     for (int i = threadIdx.x; i < 2 * BQ; i += THREADS) {
       const int c = i % BQ;
-      const bool ok = q0 + c < p.S;
+      const bool ok = q0 + c < p.Sq;
       const float* src = (i < BQ ? p.lse : p.delta) + rows + (ok ? q0 + c : 0);
       fm::cp_async4((i < BQ ? lse_s : D_s) + st * BQ + c, src, ok);
     }
   };
 
-  fm::load_tile<BK, HD, THREADS, HDP>(Ks, k, p.ss[K], k0, p.S);
-  fm::load_tile<BK, HD, THREADS, HDP>(Vs, v, p.ss[V], k0, p.S);
+  fm::load_tile<BK, HD, THREADS, HDP>(Ks, k, p.ss[K], k0, p.Sk);
+  fm::load_tile<BK, HD, THREADS, HDP>(Vs, v, p.ss[V], k0, p.Sk);
   fm::cp_async_commit();
   if (n_iter > 0) load_iter(0, 0);
   fm::cp_async_commit();
@@ -795,11 +806,14 @@ __global__ void __launch_bounds__(Bf16Bwd<HD>::THREADS, 1)
     for (int kk = 0; kk < BQ / 16; ++kk) fm::fence_operand(da[kk]);
     __syncthreads();  // stage st consumed before it is loaded again
   }
-  // The warp's own rows of the K and V tiles take its dK and dV.
+  // The warp's own rows of the K and V tiles take its dK and dV (after the
+  // tiles' copies have landed, should no query row see these keys).
+  fm::cp_async_wait<0>();
+  __syncthreads();
   fm::store_rows<BK, HD, HDP>(Ks, warp * 16, acc_dk, p.scale, p.scale, dk,
-                              p.ss[DK], k0 + warp * 16, p.S, lane);
+                              p.ss[DK], k0 + warp * 16, p.Sk, lane);
   fm::store_rows<BK, HD, HDP>(Vs, warp * 16, acc_dv, 1.f, 1.f, dv, p.ss[DV],
-                              k0 + warp * 16, p.S, lane);
+                              k0 + warp * 16, p.Sk, lane);
 }
 
 template <int HD>
@@ -814,12 +828,12 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
                              static_cast<int>(Cfg::SMEM_DKV));
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_bf16_kernel<HD>
-      <<<dim3(p.H, p.B, (p.S + Cfg::BM - 1) / Cfg::BM), Cfg::THREADS,
+      <<<dim3(p.H, p.B, (p.Sq + Cfg::BM - 1) / Cfg::BM), Cfg::THREADS,
          Cfg::SMEM_DQ, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkv_bf16_kernel<HD>
-      <<<dim3(p.KV, p.B, (p.S + Cfg::BK - 1) / Cfg::BK), Cfg::THREADS,
+      <<<dim3(p.KV, p.B, (p.Sk + Cfg::BK - 1) / Cfg::BK), Cfg::THREADS,
          Cfg::SMEM_DKV, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -838,15 +852,16 @@ int launch_bf16_hd(const Params& p, int head_dim, cudaStream_t stream) {
 // dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the tensor-core
 // kernels, which need 16-byte aligned rows as the forward does).  strides:
 // 24 element strides, the (batch, sequence, head) strides of q, k, v, o,
-// dout, dq, dk and dv in that order.  lse: the forward's [B, H, S] fp32
-// log-sum-exp; delta: a [B, H, S] fp32 scratch buffer.  Launches the dQ
+// dout, dq, dk and dv in that order.  lse: the forward's [B, H, Sq] fp32
+// log-sum-exp; delta: a [B, H, Sq] fp32 scratch buffer.  Launches the dQ
 // pass, then the dK/dV pass, on `stream` without synchronising; returns the
 // first CUDA error (0 on success).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
                                    float* delta, void* dq, void* dk, void* dv,
-                                   int B, int H, int KV, int S, int head_dim,
+                                   int B, int H, int KV, int Sq, int Sk,
+                                   int head_dim,
                                    const int64_t* strides, float scale,
                                    int causal, int window, void* stream) {
   Params p{};
@@ -863,7 +878,8 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
   p.B = B;
   p.H = H;
   p.KV = KV;
-  p.S = S;
+  p.Sq = Sq;
+  p.Sk = Sk;
   for (int t = 0; t < N_TENSORS; ++t) {
     p.sb[t] = strides[3 * t];
     p.ss[t] = strides[3 * t + 1];

@@ -391,13 +391,14 @@ struct Mask {
     *lo = k_lo / bk;
     *end = k_hi >= k_lo ? k_hi / bk + 1 : *lo;
   }
-  // Query tiles of size bq holding a row that sees a key of [k0, k0 + bk)
-  // (self-attention, Sq == Sk): [*lo, *end).
+  // Query tiles of size bq holding a row that sees a key of [k0, k0 + bk):
+  // [*lo, *end).
   __device__ __forceinline__ void query_tiles(int k0, int bk, int bq, int* lo,
                                               int* end) const {
+    const int off = Sk - Sq;
     const int k_last = min(k0 + bk, Sk) - 1;
-    const int q_lo = causal ? k0 : 0;
-    const int q_hi = window ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+    const int q_lo = causal ? max(0, k0 - off) : 0;
+    const int q_hi = window ? min(Sq - 1, k_last - off + window - 1) : Sq - 1;
     *lo = q_lo / bq;
     *end = q_hi >= q_lo ? q_hi / bq + 1 : *lo;
   }

@@ -7,7 +7,8 @@ q [B, Sq, H, hd], k/v [B, Sk, KV, hd] through strides, handles any sequence
 length, and returns [B, Sq, H, hd] in q's dtype, plus the rows' fp32
 log-sum-exp when asked.  The backward, which has no TPU counterpart (JAX
 differentiates its jnp attention), takes that log-sum-exp and returns dq,
-dk, dv for self-attention (Sq == Sk).  Their plain version is
+dk, dv for self-attention (Sq == Sk) and for cross-attention without the
+causal mask (Sq != Sk).  Their plain version is
 ``repro_torch.kernels.ref.flash_attention_ref`` and autograd through it;
 ``ops.flash_attention`` picks between the two by the device of the tensors.
 
@@ -48,9 +49,10 @@ bwd_launches = 0
 
 # C entry point -> (source in csrc/, pointer arguments, int shape arguments):
 # the forward takes q, k, v, o, lse and B, H, KV, Sq, Sk, head_dim; the
-# backward q, k, v, o, dout, lse, delta, dq, dk, dv and B, H, KV, S, head_dim.
+# backward q, k, v, o, dout, lse, delta, dq, dk, dv and B, H, KV, Sq, Sk,
+# head_dim.
 _ENTRY_POINTS = {"flash_attention_fwd": ("flash_attention", 5, 6),
-                 "flash_attention_bwd": ("flash_attention_bwd", 10, 5)}
+                 "flash_attention_bwd": ("flash_attention_bwd", 10, 6)}
 _fns: dict = {}
 
 
@@ -82,14 +84,15 @@ def key_tiles(q0: int, bq: int, bk: int, Sq: int, Sk: int, causal: bool,
     return range(lo, k_hi // bk + 1 if k_hi >= k_lo else lo)
 
 
-def query_tiles(k0: int, bk: int, bq: int, S: int, causal: bool,
+def query_tiles(k0: int, bk: int, bq: int, Sq: int, Sk: int, causal: bool,
                 window: int) -> range:
     """Query tiles of ``bq`` rows holding a row that sees a key of
-    ``[k0, k0 + bk)`` in self-attention, as ``Mask::query_tiles`` walks
-    them (the dK/dV pass)."""
-    k_last = min(k0 + bk, S) - 1
-    q_lo = k0 if causal else 0
-    q_hi = min(S - 1, k_last + window - 1) if window else S - 1
+    ``[k0, k0 + bk)``, as ``Mask::query_tiles`` walks them (the dK/dV pass;
+    queries right-aligned at offset ``Sk - Sq``)."""
+    off = Sk - Sq
+    k_last = min(k0 + bk, Sk) - 1
+    q_lo = max(0, k0 - off) if causal else 0
+    q_hi = min(Sq - 1, k_last - off + window - 1) if window else Sq - 1
     lo = q_lo // bq
     return range(lo, q_hi // bq + 1 if q_hi >= q_lo else lo)
 
@@ -192,15 +195,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0):
     """Launch the backward on the current stream: the forward's inputs, its
     output ``out`` and ``lse`` (from ``return_lse``), and the upstream
-    gradient ``dout`` [B,S,H,hd] -> (dq, dk, dv) shaped and typed like q, k,
-    v.  Self-attention only: raises ``ValueError`` unless Sq == Sk."""
+    gradient ``dout`` [B,Sq,H,hd] -> (dq, dk, dv) shaped and typed like q,
+    k, v.  A causal mask needs Sq == Sk (``ValueError`` otherwise); without
+    one Sk may differ from Sq."""
     global bwd_launches
     _check(q, k, v, window)
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    if k.shape[1] != S:
-        raise ValueError(f"flash_attention_bwd: needs Sq == Sk, got Sq={S} "
-                         f"Sk={k.shape[1]}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if causal and Sk != Sq:
+        raise ValueError(f"flash_attention_bwd: a causal mask needs Sq == Sk, "
+                         f"got Sq={Sq} Sk={Sk}")
     for name, t in (("out", out), ("dout", dout)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or t.stride(-1) != 1):
@@ -209,22 +213,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"head_dim, got {tuple(t.shape)} {t.dtype} "
                              f"strides {t.stride()}")
         _check_aligned(name, t)
-    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
-                         f"[{B}, {H}, {S}] float32 tensor, got "
+                         f"[{B}, {H}, {Sq}] float32 tensor, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     fn = _kernel("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B, H, KV, S, hd, _strides(q, k, v, out, dout, dq, dk, dv),
+                B, H, KV, Sq, Sk, hd,
+                _strides(q, k, v, out, dout, dq, dk, dv),
                 1.0 / math.sqrt(hd), int(causal), int(window), stream)
     if rc:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc}")

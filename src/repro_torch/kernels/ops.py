@@ -60,17 +60,19 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q [B,S,H,hd], k/v [B,S,KV,hd] (model layout) -> [B,S,H,hd].  On the
-    card a gradient needs Sq == Sk (self-attention)."""
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] (model layout) -> [B,Sq,H,hd].  On
+    the card a gradient under the causal mask needs Sq == Sk (the backward
+    kernel takes Sq != Sk only without it: cross-attention)."""
     if q.device.type == "cpu":
         out = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2), causal=causal,
                                       window=window)
         return out.transpose(1, 2)
     if _needs_grad(q, k, v):
-        if q.shape[1] != k.shape[1]:
+        if causal and q.shape[1] != k.shape[1]:
             raise ValueError(f"flash_attention: the backward kernel needs "
-                             f"Sq == Sk, got {q.shape[1]} and {k.shape[1]}")
+                             f"Sq == Sk under a causal mask, got "
+                             f"{q.shape[1]} and {k.shape[1]}")
         return _FlashAttention.apply(q, k, v, causal, window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 

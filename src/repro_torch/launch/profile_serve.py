@@ -28,7 +28,7 @@ from torch.profiler import ProfilerActivity
 from torch.profiler import profile as profile_
 
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import prompt_tokens
+from repro_torch.launch.serve import context_len, prompt_batch
 from repro_torch.models import get_model
 
 
@@ -103,15 +103,14 @@ def profile(fn) -> dict:
     return _summary(prof, wall)
 
 
-def profile_generate(model, params, tokens: torch.Tensor,
-                     decode_steps: int) -> dict:
-    """Trace one prefill of ``tokens`` [B, S] and ``decode_steps`` greedy
-    decode steps from its cache, after one untraced warm-up pass of both:
-    ``{"prefill": summary, "decode": summary}``."""
-    max_seq = tokens.shape[1] + decode_steps + 1
+def profile_generate(model, params, batch: dict, decode_steps: int) -> dict:
+    """Trace one prefill of ``batch`` (as ``serve.generate`` takes it) and
+    ``decode_steps`` greedy decode steps from its cache, after one untraced
+    warm-up pass of both: ``{"prefill": summary, "decode": summary}``."""
+    max_seq = context_len(batch) + decode_steps + 1
 
     def run_prefill():
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
+        logits, cache = model.prefill(params, batch, max_seq)
         return logits.argmax(-1, keepdim=True), cache
 
     def run_decode(token, cache):
@@ -137,6 +136,8 @@ def main() -> None:
     ap.add_argument("--arch", default="qwen2-7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="encoder frames (encdec; default: --prompt-len)")
     ap.add_argument("--decode-steps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -144,12 +145,12 @@ def main() -> None:
     cfg = get_config(args.arch)
     model = get_model(cfg, device="cuda")
     params = model.init(args.seed)
-    tokens = prompt_tokens(cfg.vocab_size, args.batch, args.prompt_len,
-                           args.seed, "cuda")
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed, "cuda",
+                         frames=args.frames)
     out = {"arch": cfg.name, "batch": args.batch,
            "prompt_len": args.prompt_len, "decode_steps": args.decode_steps,
            "device": torch.cuda.get_device_name(0),
-           **profile_generate(model, params, tokens, args.decode_steps)}
+           **profile_generate(model, params, batch, args.decode_steps)}
     print(json.dumps(out))
 
 

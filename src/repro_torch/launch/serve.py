@@ -1,19 +1,25 @@
 """Serving launcher CLI: batched prefill + greedy decode with a decode cache.
 
-Port of ``repro.launch.serve`` for the families the port serves (dense,
-MoE, Mamba-2, and the jamba hybrid with or without experts):
+Port of ``repro.launch.serve`` for every family: dense, MoE, Mamba-2, the
+jamba hybrid, the encoder-decoder (whisper, with stub frame embeddings) and
+the VLM (llava, with stub patch embeddings as a prefix):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --batch 4 --prompt-len 512 --gen 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
-        --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+        --batch 16 --prompt-len 224 --frames 1500 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --arch mixtral-8x22b-smoke --prompt-len 40 --gen 8
+        --arch llava-next-34b-smoke --prompt-len 40 --gen 8
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU
 (``--device cpu``, with a ``-smoke`` arch).  Runs eagerly; the greedy
 argmax stays on the device, so the decode loop never waits for the host.
-Weights are random, drawn on the device from ``--seed``.
+Weights are random, drawn on the device from ``--seed``; so are the prompts
+and the frame or patch embeddings (``prompt_batch``).
+
+The JAX launcher sizes the decode cache as prompt + gen, leaving out a
+VLM's prefix rows, so its decode attends only to the last prompt + gen
+positions and forgets the image (ROADMAP §C).  ``generate`` counts them.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
 from repro_torch.models.registry import Model
 
@@ -34,28 +41,48 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prompt_tokens(vocab_size: int, batch: int, prompt_len: int, seed: int,
-                  device) -> torch.Tensor:
-    """Random prompts [batch, prompt_len] from ``seed``, as the JAX
-    launcher draws them."""
+def prompt_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                 device, frames: int | None = None) -> dict:
+    """Random prompts [batch, prompt_len] from ``seed``, then the encoder's
+    frame embeddings [batch, frames, D] (``frames`` defaults to
+    ``prompt_len``) or the VLM's prefix [batch, n_prefix_tokens, D], drawn
+    from one generator in the JAX launcher's order, the embeddings in
+    float32 as it draws them."""
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(
-        rng.integers(0, vocab_size, (batch, prompt_len))).to(device)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt_len))}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, frames or prompt_len, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision_patches":
+        out["prefix"] = rng.standard_normal(
+            (batch, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
-def generate(model: Model, params, tokens: torch.Tensor, gen: int) -> dict:
-    """Prefill ``tokens`` [B, S], then greedy-decode until ``gen`` tokens
-    per row exist (the first comes from prefill, ``gen - 1`` decode steps).
+def context_len(batch: dict) -> int:
+    """Positions the self-attention cache holds after prefill: the prompt's
+    tokens and a VLM's prefix rows (an encoder's frames live in the
+    cross-attention's K/V instead)."""
+    prefix = batch.get("prefix")
+    return batch["tokens"].shape[1] + (0 if prefix is None
+                                       else prefix.shape[1])
+
+
+def generate(model: Model, params, batch: dict, gen: int) -> dict:
+    """Prefill ``batch`` (tokens [B, S], and frames or a prefix where the
+    family takes them), then greedy-decode until ``gen`` tokens per row
+    exist (the first comes from prefill, ``gen - 1`` decode steps), with a
+    cache of ``context_len(batch) + gen`` positions.
 
     Returns the tokens [B, gen], the last logits, a device flag that every
     step's logits were finite, and host-clock seconds for prefill and for
     the decode loop, each ending in a synchronize.
     """
-    device = tokens.device
-    max_seq = tokens.shape[1] + gen
+    device = batch["tokens"].device
+    max_seq = context_len(batch) + gen
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
+    logits, cache = model.prefill(params, batch, max_seq)
     token = logits.argmax(-1, keepdim=True)
     finite = torch.isfinite(logits).all()
     _sync(device)
@@ -80,6 +107,8 @@ def main() -> None:
                     help=f"one of {ARCH_NAMES} (append -smoke for CPU)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="encoder frames (encdec; default: --prompt-len)")
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -89,9 +118,9 @@ def main() -> None:
     device = torch.device(args.device)
     model = get_model(cfg, device=device)
     params = model.init(args.seed)
-    tokens = prompt_tokens(cfg.vocab_size, args.batch, args.prompt_len,
-                           args.seed, device)
-    r = generate(model, params, tokens, args.gen)
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed, device,
+                         frames=args.frames)
+    r = generate(model, params, batch, args.gen)
     print(f"{cfg.name}: prefill {args.batch}x{args.prompt_len} "
           f"in {r['prefill_s'] * 1e3:.1f} ms")
     n = args.batch * r["decode_steps"]

@@ -7,15 +7,21 @@ path belongs to the parallel slice of the port):
         --arch qwen2-7b-smoke --steps 100 --ckpt-dir ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch mixtral-8x22b-smoke --steps 20 --seq 64 --ckpt-dir ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch whisper-base-smoke --steps 3 --seq 32 --ckpt-dir ckpt
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU.
-Dense and MoE configs train (the MoE load-balancing loss enters the loss
-with weight ``AUX_LOSS_WEIGHT``); a config with Mamba units raises
-``NotImplementedError``.  The loop is the fault-tolerant one: auto-resume,
-SIGTERM checkpointing, straggler detection, async checkpoints.
-:func:`setup` builds the model, optimizer, data and step for any
-``ModelConfig`` (``chip_smoke.py`` passes depth-cut ``qwen2-7b`` and
-``mixtral-8x22b``).
+Dense, MoE, VLM and encoder-decoder configs train (the MoE load-balancing
+loss enters the loss with weight ``AUX_LOSS_WEIGHT``); a config with Mamba
+units raises ``NotImplementedError``.  The synthetic batches carry what
+each family takes: ``--seq`` text tokens, plus the VLM's prefix of
+``n_prefix_tokens`` patch embeddings, or the encoder's frame embeddings (as
+many as tokens, as the JAX pipeline draws them).  The loop is the
+fault-tolerant one: auto-resume, SIGTERM checkpointing, straggler
+detection, async checkpoints.  :func:`setup` builds the model, optimizer,
+data and step for any ``ModelConfig`` (``chip_smoke.py`` passes depth-cut
+``qwen2-7b``, ``mixtral-8x22b`` and ``llava-next-34b``, and
+``whisper-base``).
 """
 
 from __future__ import annotations

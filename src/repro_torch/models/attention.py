@@ -1,18 +1,22 @@
 """GQA attention with RoPE, sliding-window masking, and KV caches.
 
-Port of ``repro.models.attention``, the dense serving and training entry
-points:
-  * ``attend_train``   — full-sequence causal attention for the train step
-    through ``ops.flash_attention`` (on the card the kernel pair under an
-    ``autograd.Function``, on the CPU autograd through its plain version).
+Port of ``repro.models.attention``:
+  * ``attend_train``   — full-sequence self-attention for the train step,
+    causal or not (the whisper encoder), through ``ops.flash_attention``
+    (on the card the kernel pair under an ``autograd.Function``, on the CPU
+    autograd through its plain version).
   * ``attend_prefill`` — full-sequence causal attention through
     ``ops.flash_attention`` (the CUDA kernel on the card, its plain version
     on the CPU), also returning the KV cache.
   * ``attend_decode``  — one-token step against the cache (ring buffer for
     sliding-window layers, linear buffer otherwise), in plain torch on both
     devices, as the JAX package computes it outside any Pallas kernel.
+  * ``encode_kv``      — the encoder states' K/V for one decoder layer.
+  * ``attend_cross``   — decoder queries against those K/V, without a mask,
+    through ``ops.flash_attention`` for any query length (prefill, training
+    and the one-token decode step).  The JAX module runs its plain
+    ``_sdpa`` here: the same function.
 
-``attend_cross`` and ``encode_kv`` come with the encoder-decoder slice.
 Weights keep the JAX layout [in, out] for ``x @ w``.
 """
 
@@ -113,14 +117,15 @@ def _rotary_qkv(p, x, cfg: ModelConfig):
     return q, k, v
 
 
-def attend_train(p, x, cfg: ModelConfig):
-    """Causal (sliding-window where the config has one) self-attention of
-    x [B, S, D] -> [B, S, D]: the JAX module's ``use_pallas=True`` branch,
-    the same function as its ``_sdpa`` mask branch."""
+def attend_train(p, x, cfg: ModelConfig, *, is_causal: bool = True):
+    """Self-attention of x [B, S, D] -> [B, S, D]: causal (sliding-window
+    where the config has one), or with no mask at all, as the JAX module's
+    ``_sdpa`` branch masks it (its ``use_pallas=True`` branch computes the
+    same function wherever the port calls it)."""
     B, S, _ = x.shape
     q, k, v = _rotary_qkv(p, x, cfg)
-    out = ops.flash_attention(q, k, v, causal=True,
-                              window=cfg.sliding_window)
+    out = ops.flash_attention(q, k, v, causal=is_causal,
+                              window=cfg.sliding_window if is_causal else 0)
     return out.reshape(B, S, -1) @ p["wo"]
 
 
@@ -174,3 +179,33 @@ def attend_decode(p, x, cache: KVCache, cfg: ModelConfig):
     out = _sdpa(q, cache.k, cache.v, valid, cfg)
     y = out.reshape(x.shape[0], 1, -1) @ p["wo"]
     return y, cache._replace(length=pos + 1)
+
+
+def init_cross_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
+                    device) -> dict:
+    return init_attn(generator, cfg, dtype, device)
+
+
+def attend_cross(p, x, enc_kv, cfg: ModelConfig):
+    """Decoder cross-attention of x [B, S, D] over the encoder's K/V
+    [B, Se, KV, hd] (``encode_kv``), no mask, any S and Se."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(1, 1, H, hd)
+    k, v = enc_kv
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def encode_kv(p, enc_out, cfg: ModelConfig):
+    """Encoder states [B, Se, D] -> (k, v), each [B, Se, KV, hd]."""
+    B, Se, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = (enc_out @ p["wk"]).reshape(B, Se, KV, hd)
+    v = (enc_out @ p["wv"]).reshape(B, Se, KV, hd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].reshape(1, 1, KV, hd)
+        v = v + p["bv"].reshape(1, 1, KV, hd)
+    return k, v

@@ -1,5 +1,4 @@
-"""Uniform model API: serving for the dense, moe, SSM and hybrid families,
-the train loss for the dense and moe families.
+"""Uniform model API over every architecture family.
 
 Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
 ``Model`` with:
@@ -10,10 +9,14 @@ Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
   decode(params, token, cache)     -> (logits, cache)
   init_cache(batch, max_seq)       -> cache
 
-``loss`` raises ``NotImplementedError`` for a config with Mamba units (the
-SSM family and the jamba hybrid, with or without experts: the SSD backward
-kernel is a later slice).  The ``encdec`` and ``vlm`` families raise when
-the model is asked for.
+``batch`` is a dict whose keys depend on the family: tokens (and labels for
+the loss) always, plus ``prefix`` patch embeddings for the VLM family and
+``frames`` for the encoder-decoder.  ``max_seq`` is the self-attention
+cache's length; for a VLM it counts the prefix rows.  The encoder-decoder's
+``init_cache`` raises ``NotImplementedError``, as JAX's does: its decode
+cache holds the encoder's K/V, so it comes from ``prefill``.  ``loss``
+raises ``NotImplementedError`` for a config with Mamba units (the SSM
+family and the jamba hybrid: the SSD backward kernel is a later slice).
 """
 
 from __future__ import annotations
@@ -25,12 +28,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
-
-_LATER_SLICE = {
-    "encdec": "the encoder-decoder slice",
-    "vlm": "the VLM slice",
-}
+from repro_torch.models import encdec, transformer
 
 
 @dataclass(frozen=True)
@@ -45,21 +43,43 @@ class Model:
 
 
 def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if cfg.family in _LATER_SLICE:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is ported in "
-            f"{_LATER_SLICE[cfg.family]}")
     device = torch.device(device)
 
+    def generator() -> torch.Generator:
+        return torch.Generator(device=device)
+
+    if cfg.family == "encdec":
+        def init_encdec(seed: int):
+            return encdec.init_encdec(generator().manual_seed(seed), cfg,
+                                      device)
+
+        def loss_encdec(params, batch):
+            return encdec.loss_fn(params, batch, cfg)
+
+        def prefill_encdec(params, batch, max_seq):
+            return encdec.prefill(params, batch["frames"], batch["tokens"],
+                                  cfg, max_seq)
+
+        def decode_encdec(params, token, cache):
+            return encdec.decode_step(params, token, cache, cfg)
+
+        def no_cache(batch: int, max_seq: int):
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder-decoder's decode cache holds the "
+                f"encoder's K/V, so it comes from prefill")
+
+        return Model(cfg, init_encdec, loss_encdec, prefill_encdec,
+                     decode_encdec, no_cache, transformer.decayed)
+
     def init(seed: int):
-        generator = torch.Generator(device=device).manual_seed(seed)
-        return transformer.init_lm(generator, cfg, device)
+        return transformer.init_lm(generator().manual_seed(seed), cfg, device)
 
     def loss(params, batch):
         return transformer.loss_fn(params, batch, cfg)
 
     def prefill_fn(params, batch, max_seq):
-        return transformer.prefill(params, batch["tokens"], cfg, max_seq)
+        return transformer.prefill(params, batch["tokens"], cfg, max_seq,
+                                   prefix=batch.get("prefix"))
 
     def decode_fn(params, token, cache):
         return transformer.decode_step(params, token, cache, cfg)

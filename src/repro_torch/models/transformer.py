@@ -3,7 +3,10 @@ the train loss for units of attention with a dense or MoE FFN.
 
 Port of ``repro.models.transformer`` for units of attention or Mamba-2
 mixers with an optional dense or MoE FFN (the dense and moe families,
-mamba2, and the jamba hybrid with or without experts).  Layers are grouped
+mamba2, and the jamba hybrid with or without experts), and for the VLM
+family: precomputed prefix embeddings (the stub vision frontend's patches)
+are concatenated ahead of the token embeddings, and the loss scores the
+text positions only.  Layers are grouped
 into the same repeating *units* as in the JAX module (``unit_layout``), but
 parameters are a list with one dict per unit in place of arrays stacked
 over units, and the ``lax.scan`` over units becomes a loop.  Every RMSNorm
@@ -102,17 +105,28 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
     return params
 
 
+#: Top-level subtrees that the JAX tree stacks over layers (``vmap``ped
+#: inits), and the port keeps as lists of per-layer dicts: the units, and
+#: the encoder-decoder's layers.
+STACKED = ("units", "enc_layers", "dec_layers")
+
+
 def decayed(path: tuple, p: torch.Tensor) -> bool:
     """Whether AdamW decays the leaf at ``path``: JAX decays leaves of rank
-    >= 2, and its tree stacks each unit's leaves over units ([U, ...]), so a
-    unit leaf counts one axis more than here.  A unit's norm scales and QKV
-    biases are decayed, the top-level ``final_norm`` is not; the port
-    reproduces this quirk of the reference."""
-    return p.ndim + (path[:1] == ("units",)) >= 2
+    >= 2, and its tree stacks each layer's leaves over layers ([L, ...]),
+    so a leaf of a ``STACKED`` subtree counts one axis more than here.  A
+    layer's norm scales and QKV biases are decayed, the top-level norms are
+    not; the port reproduces this quirk of the reference."""
+    return p.ndim + (path[0] in STACKED) >= 2
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens]
+def embed_tokens(params, tokens, cfg: ModelConfig, prefix=None):
+    """Token embeddings [B, S, D], after the prefix embeddings [B, P, D]
+    (cast to the model's dtype) where there are any."""
+    h = params["embed"][tokens]
+    if prefix is not None:
+        h = torch.cat([prefix.to(h.dtype), h], dim=1)
+    return h
 
 
 def lm_head(params, h, cfg: ModelConfig):
@@ -155,8 +169,9 @@ def _apply_unit_train(h, up, cfg: ModelConfig):
     return h, aux
 
 
-def forward_train(params, tokens, cfg: ModelConfig):
-    """tokens [B, S] -> (logits [B, S, V], aux loss).
+def _units_train(params, tokens, cfg: ModelConfig, prefix=None):
+    """The hidden states after the last unit [B, P + S, D], and the aux
+    loss.
 
     Activation checkpointing as in the JAX module (``jax.checkpoint`` on
     the unit body): only unit boundaries are kept, and the backward pass
@@ -166,11 +181,18 @@ def forward_train(params, tokens, cfg: ModelConfig):
     units, as in JAX.
     """
     _train_layout(cfg)
-    h = embed_tokens(params, tokens, cfg)
+    h = embed_tokens(params, tokens, cfg, prefix)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for up in params["units"]:
         h, a = checkpoint(_apply_unit_train, h, up, cfg, use_reentrant=False)
         aux = aux + a
+    return h, aux
+
+
+def forward_train(params, tokens, cfg: ModelConfig, prefix=None):
+    """tokens [B, S] (+ prefix embeddings [B, P, D]) -> (logits
+    [B, P + S, V], aux loss)."""
+    h, aux = _units_train(params, tokens, cfg, prefix)
     h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return lm_head(params, h, cfg), aux
 
@@ -188,12 +210,19 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """batch: {'tokens': [B, S], 'labels': [B, S]} -> (loss, {'ce', 'aux'})."""
-    if batch.get("prefix") is not None:
-        raise NotImplementedError("prefix embeddings come with the VLM slice "
-                                  "of the port")
-    logits, aux = forward_train(params, batch["tokens"], cfg)
-    ce = cross_entropy(logits, batch["labels"])
+    """batch: {'tokens': [B, S], 'labels': [B, S], optional 'prefix'
+    [B, P, D]} -> (loss, {'ce', 'aux'}).
+
+    The loss scores the text positions only.  The final norm and the LM
+    head run on those positions alone: both are per row, so this is the JAX
+    module's loss over its sliced logits, without the prefix's logits.
+    """
+    prefix = batch.get("prefix")
+    h, aux = _units_train(params, batch["tokens"], cfg, prefix)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:]
+    h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    ce = cross_entropy(lm_head(params, h, cfg), batch["labels"])
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
@@ -239,14 +268,17 @@ def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int):
     return h, LayerCache(kv=tuple(kvs), ssm=tuple(ssms))
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
-    """Full-context pass -> (last-position logits [B, V], per-unit caches).
+def prefill(params, tokens, cfg: ModelConfig, max_seq: int, prefix=None):
+    """Full-context pass over the prefix embeddings (if any) and ``tokens``
+    -> (last-position logits [B, V], per-unit caches).  ``max_seq`` counts
+    the prefix rows: a cache shorter than the context keeps only its last
+    ``max_seq`` positions, as in JAX.
 
     The final norm and the LM head run on the last position only: the norm
     is per row, so this is the JAX module's result without the [B, S, V]
     logits.
     """
-    h = embed_tokens(params, tokens, cfg)
+    h = embed_tokens(params, tokens, cfg, prefix)
     caches = []
     for up in params["units"]:
         h, cache = _apply_unit_prefill(h, up, cfg, max_seq)

@@ -397,15 +397,61 @@ def test_cuda_flash_lse_is_the_rows_logsumexp(cuda):
     np.testing.assert_allclose(_np(lse), _np(want), rtol=2e-5, atol=2e-5)
 
 
+GPU_FLASH_BWD_CROSS = [  # (B, H, KV, Sq, Sk, hd, window, dtype), no causal mask
+    (2, 8, 8, 100, 300, 64, 0, "float32"),        # whisper's heads, Sq < Sk
+    (1, 4, 2, 300, 129, 128, 0, "float32"),       # Sq > Sk, GQA
+    (1, 2, 1, 100, 400, 16, 64, "float32"),       # first keys seen by none
+    (2, 8, 8, 224, 1500, 64, 0, "bfloat16"),      # whisper's cross-attention
+    (2, 8, 8, 1, 300, 64, 0, "bfloat16"),         # one query row
+    (1, 4, 2, 300, 129, 128, 0, "bfloat16"),
+    (1, 2, 1, 100, 400, 16, 64, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,window,dtype", GPU_FLASH_BWD_CROSS)
+def test_cuda_flash_bwd_cross_attention_matches_plain(cuda, B, H, KV, Sq, Sk,
+                                                      hd, window, dtype):
+    """The backward without the causal mask over keys of another length,
+    through ``ops.flash_attention``'s autograd.Function, against autograd
+    through the plain version; two backward calls bit-equal."""
+    q = _torch(_normal(0, (B, Sq, H, hd)), dtype, cuda).requires_grad_()
+    k, v = (_torch(_normal(i, (B, Sk, KV, hd)), dtype, cuda).requires_grad_()
+            for i in (1, 2))
+    dout = _torch(_normal(3, (B, Sq, H, hd)), dtype, cuda)
+    before = tfa.bwd_launches
+    out = ops.flash_attention(q, k, v, causal=False, window=window)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert tfa.bwd_launches == before + 1
+    o, lse = tfa.flash_attention(q.detach(), k.detach(), v.detach(),
+                                 causal=False, window=window, return_lse=True)
+    again = tfa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), o,
+                                    lse, dout, causal=False, window=window)
+    assert all(map(torch.equal, got, again))
+    want = _plain_grads(
+        lambda q, k, v: ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=False, window=window).transpose(1, 2), (q, k, v), dout)
+    top = max(float(w.abs().max()) for w in want)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        _assert_grad_close(g, w, dtype, f"d{name}", top)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_bwd_refuses_cross_attention(cuda):
+    """Cross-attention (Sq != Sk) under the causal mask: the backward kernel
+    takes Sq != Sk only without it, and refuses before launching."""
     q = torch.zeros(1, 64, 4, 64, device=cuda, requires_grad=True)
     kv = torch.zeros(1, 128, 4, 64, device=cuda)
     with pytest.raises(ValueError, match="Sq == Sk"):
         ops.flash_attention(q, kv, kv)
     out, lse = tfa.flash_attention(q.detach(), kv, kv, return_lse=True)
+    before = tfa.bwd_launches
     with pytest.raises(ValueError, match="Sq == Sk"):
         tfa.flash_attention_bwd(q.detach(), kv, kv, out, lse, out)
+    assert tfa.bwd_launches == before
 
 
 @pytest.mark.cuda
@@ -486,6 +532,51 @@ def test_cuda_train_step_matches_cpu(cuda):
     s_cpu, m_cpu = t_cpu.train_step(s_cpu, batch)
     s_gpu, m_gpu = t_gpu.train_step(s_gpu, batch)
     assert abs(float(m_cpu["loss"]) - float(m_gpu["loss"])) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,frames", [("whisper-base", 100),
+                                         ("llava-next-34b", None)])
+def test_cuda_family_serves_and_trains_like_cpu(cuda, arch, frames):
+    """The encoder-decoder (100 frames against 40 tokens) and the VLM (a
+    prefix of 8 patch rows) smoke models in float32, card (kernels) against
+    CPU (plain versions) from the same parameters: equal greedy tokens and
+    the last logits within 1e-3; one batch's loss within 1e-4 and its
+    gradients within 1e-4 relative and of the leaf's largest entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.tree import leaves, tree_map
+
+    def to(device):
+        return lambda x: x.to(device) if isinstance(x, torch.Tensor) else x
+
+    cfg = get_config(arch).smoke()
+    t_cpu, t_gpu = (train.setup(cfg, steps=2, batch=2, seq=40, device=d)
+                    for d in ("cpu", "cuda"))
+    s_cpu = t_cpu.init()
+    s_gpu = tree_map(to(cuda), s_cpu)
+    batch = serve.prompt_batch(cfg, 2, 40, 0, "cpu", frames=frames)
+    r_cpu = serve.generate(t_cpu.model, s_cpu.params, batch, 5)
+    r_gpu = serve.generate(t_gpu.model, s_gpu.params,
+                           tree_map(to(cuda), batch), 5)
+    assert torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"])
+    np.testing.assert_allclose(_np(r_gpu["logits"]), _np(r_cpu["logits"]),
+                               rtol=1e-3, atol=1e-3)
+
+    data = t_cpu.pipeline.batch_at(0)
+    if frames:
+        data["frames"] = _normal(5, (2, frames, cfg.d_model))
+    grads = []
+    for t, s, dev in ((t_cpu, s_cpu, "cpu"), (t_gpu, s_gpu, cuda)):
+        for p in leaves(s.params):
+            p.requires_grad_(True)
+        loss, _ = t.model.loss(s.params, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in data.items()})
+        grads.append((loss, torch.autograd.grad(loss, leaves(s.params))))
+    (lc, gc), (lg, gg) = grads
+    assert abs(lc.item() - lg.item()) <= 1e-4
+    for a, b in zip(gg, gc):
+        _assert_grad_close(a, b, "float32")
 
 
 @pytest.mark.cuda

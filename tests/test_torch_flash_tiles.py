@@ -8,7 +8,10 @@ hold a dead one.  ``kernels/flash_attention.py`` mirrors those walks
 these tests hold the mirror to the sources' constants and to the mask's
 definition over many shapes: every live pair lies in a visited tile, every
 skipped tile is wholly masked, and every tile that skips the mask is wholly
-live.
+live.  The backward's walks are held over self-attention and over
+attention without the causal mask with Sq != Sk (cross-attention, keys
+longer or shorter than the queries, with and without a window), the
+shapes its launcher takes.
 
 A blocked emulation of the three kernels at those tiles (the forward's
 online softmax in log2 units, P rounded to bf16 for P.V; the dQ pass and the
@@ -46,8 +49,14 @@ SHAPES = [(1, 1, True, 0), (5, 5, True, 0), (63, 63, True, 0),
           (300, 300, False, 63), (300, 300, True, 31),
           (513, 513, True, 128), (513, 513, False, 100), (257, 257, True, 200),
           (64, 256, True, 0), (129, 300, True, 0), (1, 200, True, 0),
-          (100, 400, True, 64), (129, 300, False, 0)]
-SELF = [s for s in SHAPES if s[0] == s[1]]
+          (100, 400, True, 64), (129, 300, False, 0),
+          # without the causal mask, keys of another length: whisper's
+          # cross-attention (448 text rows against 1500 frames), fewer keys
+          # than queries, a window that leaves the first keys unseen
+          (448, 1500, False, 0), (300, 129, False, 0), (1, 300, False, 0),
+          (100, 400, False, 64), (300, 129, False, 40)]
+# The shapes the backward kernel takes: Sq == Sk, or no causal mask.
+BWD = [s for s in SHAPES if s[0] == s[1] or not s[2]]
 
 
 def _live(Sq: int, Sk: int, causal: bool, window: int) -> torch.Tensor:
@@ -103,26 +112,26 @@ def test_forward_walk_covers_every_live_pair(Sq, Sk, causal, window):
                     by_key=False)
 
 
-@pytest.mark.parametrize("S,_,causal,window", SELF)
-def test_dq_pass_walk_covers_every_live_pair(S, _, causal, window):
-    live = _live(S, S, causal, window)
+@pytest.mark.parametrize("Sq,Sk,causal,window", BWD)
+def test_dq_pass_walk_covers_every_live_pair(Sq, Sk, causal, window):
+    live = _live(Sq, Sk, causal, window)
     bm, bn = tfa.BWD_DQ_TILES
-    for q0 in range(0, S, bm):
-        tiles = tfa.key_tiles(q0, bm, bn, S, S, causal, window)
-        _check_walk(live, q0, bm, tiles, bn, math.ceil(S / bn),
-                    lambda k0: tfa.tile_needs_mask(q0, bm, k0, bn, S, S,
+    for q0 in range(0, Sq, bm):
+        tiles = tfa.key_tiles(q0, bm, bn, Sq, Sk, causal, window)
+        _check_walk(live, q0, bm, tiles, bn, math.ceil(Sk / bn),
+                    lambda k0: tfa.tile_needs_mask(q0, bm, k0, bn, Sq, Sk,
                                                    causal, window),
                     by_key=False)
 
 
-@pytest.mark.parametrize("S,_,causal,window", SELF)
-def test_dkv_pass_walk_covers_every_live_pair(S, _, causal, window):
-    live = _live(S, S, causal, window)
+@pytest.mark.parametrize("Sq,Sk,causal,window", BWD)
+def test_dkv_pass_walk_covers_every_live_pair(Sq, Sk, causal, window):
+    live = _live(Sq, Sk, causal, window)
     bk, bq = tfa.BWD_DKV_TILES
-    for k0 in range(0, S, bk):
-        tiles = tfa.query_tiles(k0, bk, bq, S, causal, window)
-        _check_walk(live, k0, bk, tiles, bq, math.ceil(S / bq),
-                    lambda q0: tfa.tile_needs_mask(q0, bq, k0, bk, S, S,
+    for k0 in range(0, Sk, bk):
+        tiles = tfa.query_tiles(k0, bk, bq, Sq, Sk, causal, window)
+        _check_walk(live, k0, bk, tiles, bq, math.ceil(Sq / bq),
+                    lambda q0: tfa.tile_needs_mask(q0, bq, k0, bk, Sq, Sk,
                                                    causal, window),
                     by_key=True)
 
@@ -174,10 +183,10 @@ def _emulate_fwd(q, k, v, causal: bool, window: int):
 
 def _emulate_bwd(q, k, v, out, lse, dout, causal: bool, window: int):
     """The two backward passes: (dq, dk, dv), bf16 values."""
-    B, H, S, hd = q.shape
-    KV = k.shape[1]
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
-    live = _live(S, S, causal, window)
+    live = _live(Sq, Sk, causal, window)
     scale = 1.0 / math.sqrt(hd)
     D = (dout * out).sum(-1)                                 # [B, H, S]
 
@@ -188,7 +197,7 @@ def _emulate_bwd(q, k, v, out, lse, dout, causal: bool, window: int):
         s = qb @ kb.transpose(1, 2)
         p = torch.exp2(s * scale * LOG2E
                        - lse[:, h, q0:q0 + bq, None] * LOG2E)
-        if tfa.tile_needs_mask(q0, bq, k0, bk, S, S, causal, window):
+        if tfa.tile_needs_mask(q0, bq, k0, bk, Sq, Sk, causal, window):
             p = p.masked_fill(~live[q0:q0 + bq, k0:k0 + bk], 0.0)
         dp = gb @ vb.transpose(1, 2)
         return p, _bf16(p * (dp - D[:, h, q0:q0 + bq, None]))
@@ -196,19 +205,21 @@ def _emulate_bwd(q, k, v, out, lse, dout, causal: bool, window: int):
     dq = torch.zeros_like(q)
     bm, bn = tfa.BWD_DQ_TILES
     for h in range(H):
-        for q0 in range(0, S, bm):
-            acc = 0.0
-            for t in tfa.key_tiles(q0, bm, bn, S, S, causal, window):
+        for q0 in range(0, Sq, bm):
+            acc = torch.zeros_like(q[:, h, q0:q0 + bm])
+            for t in tfa.key_tiles(q0, bm, bn, Sq, Sk, causal, window):
                 _, ds = p_ds(h, q0, bm, t * bn, bn)
                 acc = acc + ds @ k[:, h // G, t * bn:(t + 1) * bn]
             dq[:, h, q0:q0 + bm] = _bf16(acc * scale)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     bk, bq = tfa.BWD_DKV_TILES
     for kvh in range(KV):
-        for k0 in range(0, S, bk):
-            acc_k = acc_v = 0.0
+        for k0 in range(0, Sk, bk):
+            # zero where no query row sees these keys, as the kernel writes
+            acc_k = torch.zeros_like(k[:, kvh, k0:k0 + bk])
+            acc_v = torch.zeros_like(acc_k)
             for h in range(kvh * G, (kvh + 1) * G):
-                for t in tfa.query_tiles(k0, bk, bq, S, causal, window):
+                for t in tfa.query_tiles(k0, bk, bq, Sq, Sk, causal, window):
                     p, ds = p_ds(h, t * bq, bq, k0, bk)
                     rows = slice(t * bq, (t + 1) * bq)
                     acc_v = acc_v + _bf16(p).transpose(1, 2) @ dout[:, h, rows]
@@ -222,7 +233,11 @@ def _emulate_bwd(q, k, v, out, lse, dout, causal: bool, window: int):
 EMULATED = [(1, 4, 2, 200, 200, 128, True, 0), (2, 4, 1, 129, 129, 64, True, 0),
             (1, 2, 2, 300, 300, 128, True, 70), (1, 4, 2, 130, 130, 16, False, 0),
             (1, 2, 1, 64, 256, 128, True, 0), (1, 4, 4, 257, 257, 64, True, 32),
-            (1, 2, 2, 1, 1, 64, True, 0), (1, 4, 2, 129, 300, 16, False, 0)]
+            (1, 2, 2, 1, 1, 64, True, 0), (1, 4, 2, 129, 300, 16, False, 0),
+            # no causal mask, Sq != Sk: fewer keys than queries, whisper's
+            # heads, a window that leaves the first keys unseen
+            (1, 2, 2, 300, 129, 64, False, 0), (1, 8, 8, 70, 200, 64, False, 0),
+            (1, 2, 1, 100, 400, 16, False, 64)]
 
 
 def _inputs(B, H, KV, Sq, Sk, hd, seed=0):
@@ -251,7 +266,7 @@ def test_emulated_forward_matches_plain(B, H, KV, Sq, Sk, hd, causal, window):
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window",
-                         [c for c in EMULATED if c[3] == c[4]])
+                         [c for c in EMULATED if c[3] == c[4] or not c[6]])
 def test_emulated_backward_matches_autograd(B, H, KV, Sq, Sk, hd, causal,
                                             window):
     q, k, v, dout = _inputs(B, H, KV, Sq, Sk, hd, seed=1)

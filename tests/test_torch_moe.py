@@ -295,9 +295,9 @@ def test_generate_mixtral_on_cpu_runs_the_plain_path():
     params = model.init(0)
     sub = params["units"][0]["sub0"]
     assert "mlp" not in sub and sub["moe"]["router"].dtype == torch.float32
-    tokens = serve.prompt_tokens(cfg.vocab_size, 3, 70, 0, "cpu")
+    batch = serve.prompt_batch(cfg, 3, 70, 0, "cpu")
     ops.reset_launch_counts()
-    r = serve.generate(model, params, tokens, 5)
+    r = serve.generate(model, params, batch, 5)
     assert r["tokens"].shape == (3, 5) and bool(r["finite"])
     assert int(r["tokens"].min()) >= 0
     assert int(r["tokens"].max()) < cfg.vocab_size
