@@ -13,8 +13,10 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 tensor-core kernel's spill bytes (ptxas), its tensor-core
                 instructions (HMMA/HGMMA in ``cuobjdump -sass``) and its
                 asynchronous copies (LDGSTS, i.e. cp.async), failing on a
-                spill or on a kernel without either instruction;
-3. kernels   -- each of the seven kernels (four forward, three backward)
+                spill or on a kernel without either instruction (the SSD
+                backward's CUDA-core kernels are built alongside, their
+                registers and spills printed, and not held to that check);
+3. kernels   -- each of the eight kernels (four forward, four backward)
                 against its plain PyTorch version on the card at the
                 serving and training shapes, with the stated tolerance;
                 kernel, plain and library times (CUDA events) beside the
@@ -24,7 +26,13 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 and of the bf16 SSD scan bit-equal; the SSD scan's CUDA
                 kernels per call and each one's device time (a
                 ``torch.profiler`` trace of ten calls) and the scratch one
-                call allocates (``torch.cuda.max_memory_allocated``); then
+                call allocates (``torch.cuda.max_memory_allocated``); the
+                SSD scan's backward against autograd through the plain scan
+                in bf16 and float32 (a partial chunk, an initial state and
+                a d(final state)), timed at mamba2-370m's train shape (B4
+                S4096 H32, kernels per call, scratch), two calls
+                bit-equal, and checked again at jamba-1.5-large's width
+                (H 256, B1 S4096); then
                 every kernel of the mixtral paths checked again at
                 mixtral-8x22b's widths, and every kernel of the whisper and
                 llava paths at theirs (flash attention at the whisper
@@ -39,12 +47,12 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 sizes at a ragged prompt, the jamba hybrid without and with
                 experts; the MoE models' dropped (token, choice) pairs
                 equal on both; whisper with 100 frames against a 40-token
-                prompt, llava with its prefix); five float32 smoke models
-                (two qwen2, the dropping mixtral, whisper with frames
-                longer than its tokens, llava) trained three steps on the
-                card and on the CPU from the same parameters (gradients,
-                losses, ce and aux, launch counts); the train loop on the
-                card, resumed from its checkpoint;
+                prompt, llava with its prefix); the same eight float32
+                smoke models (Mamba-2 and both jamba hybrids through the
+                SSD backward kernel) trained three steps on the card and on
+                the CPU from the same parameters (gradients, losses, ce and
+                aux, launch counts); the train loop on the card, resumed
+                from its checkpoint;
 5. serve     -- through ``repro_torch.launch.serve``: qwen2-7b at full width
                 (28 layers, bf16, batch 4, prompt 512, 32 tokens), then
                 mamba2-370m at full width and depth (48 layers, bf16, batch
@@ -66,6 +74,9 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 at full width and depth, batch 16 x (1500 frames, 448
                 tokens); llava-next-34b at full width cut to 4 of its 60
                 layers, batch 2 x (2880 prefix rows + 1216 tokens);
+                mamba2-370m at full width and depth (48 layers), batch 4 x
+                4096 tokens (the SSD scan's backward kernel once per layer
+                and step);
 7. engine    -- the lockstep fifo engine (``repro_torch.core.simtorch``) at
                 the repo's batched-bench setup: each of the six registered
                 scenarios at full size on its registered topology, and
@@ -148,6 +159,18 @@ REF_LOGIT_TOL = 1e-3  # float32 model, card vs CPU, a few layers
 # D = rowsum(dO*O)); float32 1e-4 (sums over keys, query rows or rows in
 # another order).
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The SSD scan's backward against autograd through the plain scan, as rtol
+# and times the gradient's largest entry as atol, per output: dx, dB and dC
+# carry x's dtype, so in bf16 2e-2 (one rounding of each; both sides compute
+# in fp32 from the same bf16 values); ddt, dA and d(initial state) are fp32
+# on both sides in either dtype, so 1e-3, as the fp32 state above
+# (SSD_STATE_TOL): exp of a chunk's cumulative sum of dt*A in another order
+# errs by ~|cumsum| * 2^-24, and dA and ddt sum such terms over every row
+# (the CPU mirror of the kernel's steps, ssd_scan_bwd_phases, measured
+# within ~1e-4 of the largest entry).  Each check prints the output's
+# median |entry| beside its atol.
+SSD_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
+SSD_BWD_ROUNDED = ("x", "Bm", "Cm")   # the outputs in x's dtype
 CE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}   # per-row NLL, fp32 out
 # The forward's fp32 lse against the plain fp32 logsumexp of the same scores
 # (from the same bf16 or fp32 inputs), as rtol and atol: sums over the keys
@@ -157,6 +180,17 @@ LSE_TOL = 2e-5
 # gradients within 1e-4 relative and 1e-4 of the leaf's largest entry.
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-4
+# A Mamba mixer's small float32 leaves (dt_bias, D and A_log, one entry a
+# head) alone: within 1e-3 of the leaf's largest entry.  Each is a sum over
+# batch, rows and head dims that cancels to ~1e-3 of its terms, so the
+# card's own float32 elementwise torch (softplus, SiLU, exp), with every
+# kernel swapped for its plain version on the CPU, already moves them by
+# ~4e-4 of their largest entry;
+# tests/test_torch_cuda.py::test_cuda_mamba_grads_gain_no_error_from_kernels
+# measures that floor and holds the kernels to it.  Every other leaf of
+# every model, the Mamba models' included, stays at TRAIN_GRAD_TOL.
+TRAIN_GRAD_TOL_SSM = 1e-3
+SSM_SMALL_LEAVES = ("A_log", "D", "dt_bias")
 REF_TRAIN_STEPS = 3
 # The full-width train runs, (arch, layers, batch, text tokens, encoder
 # frames): qwen2-7b cut to 8 of 28 layers (the state of 28 layers, 7.6 B
@@ -169,11 +203,14 @@ REF_TRAIN_STEPS = 3
 # llava-next-34b cut to 4 of 60 layers (3.15 B parameters, 37.8 GB of
 # state), 2 x 4096 = 2880 prefix rows + 1216 text tokens (train_4k with the
 # VLM split of launch/specs.py).  A warm-up step and three timed steps.
+# mamba2-370m at full width and depth (48 layers, 368.4 M parameters, ~4.4
+# GB of state), 4 x 4096 (train_4k's global batch of 256 cut to 4).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
 TRAINS = (("qwen2-7b", 8, TRAIN_BATCH, TRAIN_SEQ, None),
           ("mixtral-8x22b", 1, TRAIN_BATCH, TRAIN_SEQ, None),
           ("whisper-base", 6, 16, 448, 1500),
-          ("llava-next-34b", 4, TRAIN_BATCH, TRAIN_SEQ - 2880, None))
+          ("llava-next-34b", 4, TRAIN_BATCH, TRAIN_SEQ - 2880, None),
+          ("mamba2-370m", 48, 4, TRAIN_SEQ, None))
 # Copies of a timed kernel's inputs: four prefill-sized sets exceed the L2.
 COPIES = {"prefill": 4, "decode": 1}
 # The engine phase: the batched-bench setup of the repo's simulator-core
@@ -550,6 +587,20 @@ def _ssd_executed_flops(B: int, S: int, H: int, P: int, N: int,
     return flops
 
 
+def _ssd_bwd_flops(B: int, S: int, H: int, P: int, N: int,
+                   chunk: int) -> int:
+    """Operations of one backward call (the function, not the kernels'
+    tiles): C.B^T once per causal pair of rows (B and C are shared by the
+    heads); per head and causal pair, dy.x, W.B, W^T.C and (G o L)^T.dy;
+    per head and row, the local state and d(state) the backward
+    recomputes, S_in^T dy, dS_out B and dS_out^T x (five [P, N]
+    products)."""
+    pairs = sum(q * (q + 1) // 2
+                for q in (min(chunk, S - c0) for c0 in range(0, S, chunk)))
+    return (2 * B * pairs * N + 4 * B * H * pairs * (P + N)
+            + 10 * B * H * S * P * N)
+
+
 def _kernels_per_call(fn, inputs: list[tuple], n: int = 10
                       ) -> tuple[float, dict[str, float]]:
     """CUDA kernels launched per call of ``fn(*args)`` and each kernel's
@@ -909,6 +960,173 @@ def _rmsnorm_bwd_entry(cfg) -> dict:
     return entry
 
 
+def _ssd_plain_grads(x, dt, A, Bm, Cm, st, dy, dfinal, chunk: int) -> tuple:
+    """Autograd through the plain scan in float32 on the same values, of
+    sum(y dy) + sum(final dfinal): the gradients of x, dt, A, Bm, Cm and
+    (where given) the initial state."""
+    from repro_torch.kernels import ref
+
+    ins = [t.detach().float().requires_grad_(True)
+           for t in (x, dt, A, Bm, Cm) + ((st,) if st is not None else ())]
+    y, final = ref.ssd_scan_ref(*ins[:5], chunk,
+                                ins[5] if st is not None else None)
+    loss = (y * dy.float()).sum()
+    if dfinal is not None:
+        loss = loss + (final * dfinal).sum()
+    return torch.autograd.grad(loss, ins)
+
+
+def _check_ssd_grads(label: str, got: list, want: tuple, dtype) -> float:
+    """Each of the backward's outputs within its SSD_BWD_TOL (x's dtype for
+    dx, dB and dC, float32 for the rest), with its median |entry| printed
+    beside the atol; returns the largest error."""
+    errs = []
+    for n, g, w in zip(("x", "dt", "A", "Bm", "Cm", "initial_state"), got,
+                       want):
+        tol = SSD_BWD_TOL[dtype if n in SSD_BWD_ROUNDED else torch.float32]
+        errs.append(check(f"{label} d{n} (median |d{n}| "
+                          f"{w.abs().median().item():.4g})", g, w, tol,
+                          atol=tol * w.abs().max().item()))
+    return max(errs)
+
+
+def _ssd_bwd_entry() -> dict:
+    """The SSD scan's backward kernel against autograd through the plain
+    scan on the card, in bf16 and float32: at mamba2-370m's train shape
+    (timed, with two calls bit-equal), a partial last chunk with an initial
+    state and a d(final state) in both dtypes, float32 at the model's A,
+    and jamba-1.5-large's width (H 256) at 1 x 4096."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    cfg = get_config("mamba2-370m")
+    P, N, Q = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    _, _, B_T, S_T, _ = next(t for t in TRAINS if t[0] == cfg.name)
+    H_JAMBA = get_config("jamba-1.5-large-398b").ssm_heads
+
+    def inputs(B, S, H, dtype, model_a, init, dfinal):
+        # x, Bm and Cm as mamba_forward passes them: views of one conv output.
+        xbc = torch.randn(B, S, H * P + 2 * N, generator=g,
+                          device="cuda").to(dtype)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt = F.softplus(torch.randn(B, S, H, generator=g, device="cuda"))
+        A = (-torch.linspace(1.0, 16.0, H, device="cuda") if model_a else
+             -torch.exp(0.5 * torch.randn(H, generator=g, device="cuda")))
+        st = (0.5 * torch.randn(B, H, P, N, generator=g, device="cuda")
+              if init else None)
+        dy = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
+        df = (torch.randn(B, H, P, N, generator=g, device="cuda")
+              if dfinal else None)
+        return x, dt, A, Bm, Cm, st, dy, df
+
+    entry = {"name": "ssd_scan_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:82",
+             "note": "backward of ssd_scan; the TPU kernel is forward-only "
+                     "(JAX differentiates the model's jnp scan), so this "
+                     "kernel has no TPU counterpart"}
+    # Registers and spills of the kernels at the models' (P, N) = (64, 128)
+    # (the C.B^T kernel by N alone), both dtypes (phase 2 prints them):
+    # CUDA-core kernels, not held to its tensor-core check.
+    entry["build_P64_N128"] = {
+        re.search(r"(ssd_bwd_\w+?_kernel)", name).group(1)
+        + (" bf16" if "bfloat16" in name else " fp32"): info
+        for name, info in _ptxas(build.build_log("ssd_scan_bwd")).items()
+        if "Li128E" in name}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, S, H, dtype, the model's A, initial state, d(final state), role).
+    cases = [(B_T, S_T, cfg.ssm_heads, bf16, True, False, False, "train"),
+             (2, 300, 8, bf16, True, True, True, "ragged"),
+             (2, 300, 8, f32, False, True, True, "ragged"),
+             (1, 512, 8, f32, True, False, True, "model A"),
+             (1, S_T, H_JAMBA, bf16, True, False, False,
+              "jamba-1.5-large-398b")]
+    for B, S, H, dtype, model_a, init, dfinal, role in cases:
+        x, dt, A, Bm, Cm, st, dy, df = inputs(B, S, H, dtype, model_a, init,
+                                              dfinal)
+        label = (f"ssd_scan_bwd {role} B{B} S{S} H{H} P{P} N{N} chunk{Q} "
+                 f"{str(dtype).split('.')[-1]}"
+                 f"{' initial_state' if init else ''}"
+                 f"{' dfinal' if dfinal else ''}")
+        got = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=Q,
+                               initial_state=st, dfinal=df)
+        if role in ("train", "ragged"):
+            again = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=Q,
+                                     initial_state=st, dfinal=df)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None):
+                fail(f"{label}: two backward calls on the same inputs differ")
+            print(f"  check {label}: a second call's gradients bit-equal ok")
+            del again
+        want = _ssd_plain_grads(x, dt, A, Bm, Cm, st, dy, df, Q)
+        err = _check_ssd_grads(label, [t for t in got if t is not None],
+                               want, dtype)
+        del want
+        if role not in ("train", "jamba-1.5-large-398b"):
+            continue
+        # x, dt, A, B, C and dy read once; dx, ddt, dA, dB, dC written once.
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (x, dt, A, Bm, Cm, dy, *got[:5]))
+        flops = _ssd_bwd_flops(B, S, H, P, N, Q)
+        b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+
+        def kernel():
+            return ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=Q)
+
+        def plain(x, dt, A, Bm, Cm):
+            return ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)[0]
+
+        row = dict(
+            max_abs_err=err, shape=list(x.shape),
+            ms=time_ms(kernel, [()], iters=5 if role == "train" else 3,
+                       warmup=1),
+            plain_ms=time_ms(_backward_timer(plain, (x, dt, A, Bm, Cm), dy),
+                             [()], iters=5 if role == "train" else 3,
+                             warmup=1),
+            library_ms=None,   # no single PyTorch call computes it
+            bound_ms=b_ms, bound_by=b_by)
+        if role != "train":
+            entry[role] = row
+            print(f"  time {label}: kernel {row['ms']:.3f} ms, plain "
+                  f"{row['plain_ms']:.3f} ms, library none, bound "
+                  f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
+                  f"{n_bytes / 1e6:.1f} MB), {100 * b_ms / row['ms']:.2f}% "
+                  f"of the bound")
+            del got
+            torch.cuda.empty_cache()
+            continue
+        entry.update(row)
+        per_call, us = _kernels_per_call(kernel, [()], n=3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = kernel()
+        torch.cuda.synchronize()
+        scratch = (torch.cuda.max_memory_allocated() - before
+                   - sum(t.numel() * t.element_size() for t in out
+                         if t is not None))
+        del out
+        entry.update(cuda_kernels_per_call=per_call, device_us_per_call=us,
+                     tflops=flops / entry["ms"] / 1e9,
+                     bound_share=b_ms / entry["ms"], scratch_bytes=scratch)
+        print(f"  time {label}: kernel {entry['ms']:.3f} ms, plain "
+              f"{entry['plain_ms']:.3f} ms, library none, bound {b_ms:.4f} ms "
+              f"({b_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB); "
+              f"{entry['tflops']:.1f} TFLOP/s by the bound's count, "
+              f"{100 * entry['bound_share']:.2f}% of the bound; {per_call:g} "
+              f"CUDA kernels per call: "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in us.items())
+              + f"; scratch allocated {scratch / 1e6:.1f} MB")
+        del got
+        torch.cuda.empty_cache()
+    return entry
+
+
 def _ce_rows(label: str, T: int, V: int, dtype, g,
              timed: bool) -> tuple[dict, dict]:
     """The fused cross-entropy and its backward on random [T, V] logits
@@ -1202,7 +1420,7 @@ def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     ssd["build_P64_N128"] = {k: built[k] for k in (
         "ssd_cb_kernel", "ssd_chunk_state_kernel", "ssd_chunk_out_kernel")}
     entries = [fwd, bwd, _rmsnorm_entry(cfg), _rmsnorm_bwd_entry(cfg), ssd,
-               *_ce_entries(cfg)]
+               _ssd_bwd_entry(), *_ce_entries(cfg)]
     torch.cuda.empty_cache()
     moe_cfg = get_config("mixtral-8x22b")
     for name, c in _checks_at(moe_cfg).items():
@@ -1241,10 +1459,11 @@ def _expected_launches(cfg, steps: int) -> dict[str, int]:
 
 
 def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
-    """Launches of ``steps`` train steps of a dense model under per-unit
-    activation checkpointing: each layer's flash attention and norms run
-    twice forward (the pass and the backward's recompute) and once
-    backward, the final norm and the cross-entropy once each way.  The
+    """Launches of ``steps`` train steps under per-unit activation
+    checkpointing: each layer's flash attention or SSD scan and its norms
+    (a Mamba mixer's gated norm too) run twice forward (the pass and the
+    backward's recompute) and once backward, the final norm and the
+    cross-entropy once each way.  The
     encoder-decoder checkpoints its decoder layers only: the encoder's
     attention and norms (and its final norm) run once each way, the
     decoder's two attentions and three norms twice forward and once
@@ -1263,10 +1482,13 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
         return {k: v * steps for k, v in per_step.items()}
     layout, U = unit_layout(cfg), n_units(cfg)
     n_attn = U * sum(s["mixer"] == "attn" for s in layout)
-    n_norms = cfg.n_layers + U * sum(bool(s["ffn"]) for s in layout)
+    n_mamba = U * sum(s["mixer"] == "mamba" for s in layout)
+    n_norms = cfg.n_layers + U * sum(bool(s["ffn"]) for s in layout) + n_mamba
     per_step = {**dict.fromkeys(ops.KERNELS, 0),
                 "flash_attention": 2 * n_attn,
                 "flash_attention_bwd": n_attn,
+                "ssd_scan": 2 * n_mamba * SSD_LAUNCHES_PER_CALL,
+                "ssd_scan_bwd": n_mamba,
                 "rmsnorm": 2 * n_norms + 1, "rmsnorm_bwd": n_norms + 1,
                 "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
     return {k: v * steps for k, v in per_step.items()}
@@ -1288,8 +1510,6 @@ REFERENCE_MODELS = (  # (arch, smoke overrides, prompt, encoder frames)
     # 8 patch rows ahead of the prompt
     ("llava-next-34b", {}, 40, None),
 )
-# The attention-only ones.
-TRAIN_REFERENCE_MODELS = REFERENCE_MODELS[:3] + REFERENCE_MODELS[6:]
 
 
 @contextlib.contextmanager
@@ -1345,18 +1565,29 @@ def _loss_grads(model, params, batch: dict, device) -> tuple:
     return torch.autograd.grad(loss, leaves(params))
 
 
+def _grad_tol(path: tuple) -> float:
+    """TRAIN_GRAD_TOL_SSM for a Mamba mixer's dt_bias, D and A_log leaves,
+    TRAIN_GRAD_TOL for every other leaf."""
+    return (TRAIN_GRAD_TOL_SSM if "mamba" in path
+            and path[-1] in SSM_SMALL_LEAVES else TRAIN_GRAD_TOL)
+
+
 def _reference_train() -> None:
-    """Two float32 qwen2 smoke models, the dropping mixtral one, whisper
-    (its frames longer than its tokens, so the float32 Sq != Sk backward
-    runs) and llava (with its prefix): one batch's gradients and three
-    train steps on the card (kernels) against the CPU (plain versions),
-    from the same parameters."""
+    """Every reference model (two float32 qwen2 smokes, the dropping
+    mixtral one, Mamba-2 with the real SSD head sizes and a partial chunk,
+    both jamba hybrids, whisper with its frames longer than its tokens so
+    that the float32 Sq != Sk backward runs, llava with its prefix): one
+    batch's gradients and three train steps on the card (kernels) against
+    the CPU (plain versions), from the same parameters."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import leaves_with_path, tree_map
 
-    for arch, overrides, S, frames in TRAIN_REFERENCE_MODELS:
+    def paths(tree) -> list[tuple]:
+        return [path for path, _ in leaves_with_path(tree)]
+
+    for arch, overrides, S, frames in REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
         label = (f"reference train {cfg.name} {overrides} 2x{S}"
                  + (f" frames {frames}" if frames else ""))
@@ -1374,15 +1605,21 @@ def _reference_train() -> None:
         counts, want = ops.launch_counts(), _expected_train_launches(cfg, 1)
         if counts != want:
             fail(f"{label}: launches of one backward {counts}, expected {want}")
-        worst, bad = 0.0, 0
-        for gg, gc in zip(g_gpu, g_cpu):
-            gg, scale = gg.cpu(), gc.abs().max().item()
-            worst = max(worst, (gg - gc).abs().max().item() / max(scale, 1e-30))
-            bad += not torch.allclose(gg, gc, rtol=TRAIN_GRAD_TOL,
-                                      atol=TRAIN_GRAD_TOL * scale)
-        print(f"  check {label} gradients: {len(g_cpu)} leaves, largest error "
-              f"{worst:.2e} of the leaf's largest entry, rtol "
-              f"{TRAIN_GRAD_TOL:g} {'ok' if not bad else 'MISMATCH'}")
+        # The worst leaf (relative error, path) and the count of leaves
+        # outside their limit, for each limit.
+        worst: dict[float, tuple[float, str]] = {}
+        bad = 0
+        for path, gg, gc in zip(paths(s_cpu.params), g_gpu, g_cpu):
+            gg, scale, tol = gg.cpu(), gc.abs().max().item(), _grad_tol(path)
+            rel = (gg - gc).abs().max().item() / max(scale, 1e-30)
+            if rel >= worst.get(tol, (-1.0, ""))[0]:
+                worst[tol] = (rel, "/".join(map(str, path)))
+            bad += not torch.allclose(gg, gc, rtol=tol, atol=tol * scale)
+        print(f"  check {label} gradients: {len(g_cpu)} leaves; largest "
+              f"error of the leaf's largest entry "
+              + "; ".join(f"rtol {tol:g}: {rel:.2e} ({where})"
+                          for tol, (rel, where) in sorted(worst.items()))
+              + f" {'ok' if not bad else 'MISMATCH'}")
         if bad:
             fail(f"{label}: {bad} gradient leaves disagree with the CPU")
 
@@ -1412,7 +1649,7 @@ def _reference_loop() -> None:
     from repro_torch.launch import train
     from repro_torch.train import loop
 
-    arch, overrides, S, _ = TRAIN_REFERENCE_MODELS[0]
+    arch, overrides, S, _ = REFERENCE_MODELS[0]
     cfg = get_config(arch).smoke(**overrides)
     t = train.setup(cfg, steps=6, batch=2, seq=S, seed=SEED, device="cuda")
     with tempfile.TemporaryDirectory() as d:
@@ -1572,20 +1809,23 @@ def phase_serve(arch: str, batch: int, prompt: int, layers: int,
 
 
 def _train_model_flops(cfg, params, batch: dict) -> tuple[float, float,
-                                                         float]:
+                                                         float, float]:
     """Model FLOPs of one train step on ``batch``: 6 per active parameter
     per row it multiplies (every position for most; the text positions for
-    the LM head; the encoder's frames for the encoder's layers and the
-    cross-attention's K/V projections; of a MoE layer's experts, the k of E
-    each token is routed to; the input embedding, a gather, none), and three
-    times the forward's attention (4 * B * H * hd per visible query-key
-    pair per layer: causal over the positions, the encoder's frames against
-    themselves, the text against the frames).  Returns (total, attention,
-    expert products as executed): each expert runs its capacity buffer of C
-    rows per sequence whatever the routing, 6 FLOPs per expert parameter
-    per buffer row (the recompute not counted), about the capacity factor
-    times the active expert FLOPs."""
+    the LM head, the tied embedding's too; the encoder's frames for the
+    encoder's layers and the cross-attention's K/V projections; of a MoE
+    layer's experts, the k of E each token is routed to; the input
+    embedding, a gather, none), three times the forward's attention (4 * B
+    * H * hd per visible query-key pair per attention layer: causal over
+    the positions, the encoder's frames against themselves, the text
+    against the frames) and three times the forward's SSD scan per Mamba
+    layer (``_ssd_flops``).  Returns (total, attention, SSD scans, expert
+    products as executed): each expert runs its capacity buffer of C rows
+    per sequence whatever the routing, 6 FLOPs per expert parameter per
+    buffer row (the recompute not counted), about the capacity factor times
+    the active expert FLOPs."""
     from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import n_units, unit_layout
     from repro_torch.tree import leaves_with_path
 
     B, St = batch["tokens"].shape
@@ -1595,7 +1835,8 @@ def _train_model_flops(cfg, params, batch: dict) -> tuple[float, float,
     for path, p in leaves_with_path(params):
         if "moe" in path and path[-1] != "router":
             experts += p.numel()
-        elif path == ("lm_head",):
+        elif path == ("lm_head",) or (path == ("embed",)
+                                      and cfg.tie_embeddings):
             dense += 6 * p.numel() * B * St
         elif path[0] in ("enc_layers", "enc_norm") or path[-2:] in (
                 ("cross_attn", "wk"), ("cross_attn", "wv")):
@@ -1606,13 +1847,21 @@ def _train_model_flops(cfg, params, batch: dict) -> tuple[float, float,
         pairs = (cfg.n_enc_layers * Se * Se
                  + cfg.n_layers * (_flash_pairs(St, St, True, 0) + St * Se))
     else:
-        pairs = cfg.n_layers * _flash_pairs(S, S, True, cfg.sliding_window)
+        n_attn = n_units(cfg) * sum(s["mixer"] == "attn"
+                                    for s in unit_layout(cfg))
+        pairs = n_attn * _flash_pairs(S, S, True, cfg.sliding_window)
     attn = 3 * 4 * B * cfg.n_heads * cfg.hd * pairs
+    ssd = 0
+    if cfg.family in ("ssm", "hybrid"):
+        n_mamba = n_units(cfg) * sum(s["mixer"] == "mamba"
+                                     for s in unit_layout(cfg))
+        ssd = 3 * n_mamba * _ssd_flops(B, S, cfg.ssm_heads, cfg.ssm_head_dim,
+                                       cfg.ssm_state, cfg.ssm_chunk)
     if not experts:
-        return dense + attn, attn, 0.0
+        return dense + attn + ssd, attn, ssd, 0.0
     active = 6 * experts * cfg.experts_per_token / cfg.n_experts * B * S
     executed = 6 * experts * B * capacity(cfg, S)
-    return dense + active + attn, attn, executed
+    return dense + active + attn + ssd, attn, ssd, executed
 
 
 def phase_train(arch: str, layers: int, batch: int, seq: int,
@@ -1672,8 +1921,8 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
     adamw_ms = time_ms(lambda: t.optimizer.update(
         grads, state.opt, state.params, t.model.decays), [()], iters=2,
         warmup=1)
-    flops, attn_flops, expert_flops = _train_model_flops(cfg, state.params,
-                                                         batches[0])
+    flops, attn_flops, ssd_flops, expert_flops = _train_model_flops(
+        cfg, state.params, batches[0])
     ms = 1e3 * sum(step_s) / len(step_s)
     stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
              "batch": batch, "seq": seq, "frames": frames,
@@ -1683,6 +1932,7 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
              "tokens_per_s": tokens / (ms / 1e3),
              "model_tflop_per_step": flops / 1e12,
              "attention_tflop_per_step": attn_flops / 1e12,
+             "ssd_tflop_per_step": ssd_flops / 1e12,
              "expert_buffer_tflop_per_step": expert_flops / 1e12,
              "share_of_bf16_peak": flops / (ms / 1e3) / BF16_TENSOR_FLOPS,
              "peak_mem_gb": peak / 1e9, "losses": losses,
@@ -1691,7 +1941,8 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
     print(f"  {ms:.1f} ms/step ({', '.join(f'{x:.1f}' for x in stats['step_ms'])}),"
           f" {stats['tokens_per_s']:.0f} tokens/s")
     print(f"  model FLOPs {flops / 1e12:.1f} TFLOP/step (attention "
-          f"{attn_flops / 1e12:.2f}), {100 * stats['share_of_bf16_peak']:.1f}%"
+          f"{attn_flops / 1e12:.2f}, SSD scans {ssd_flops / 1e12:.2f}), "
+          f"{100 * stats['share_of_bf16_peak']:.1f}%"
           f" of the 989 TFLOP/s bf16 peak"
           + (f"; expert products as executed on the capacity buffers "
              f"{expert_flops / 1e12:.1f} TFLOP/step" if expert_flops else ""))

@@ -7,10 +7,11 @@ tensor goes to ``repro_torch.kernels.ref``.  Nothing falls back from one to
 the other.
 
 Gradients.  On the CPU, autograd differentiates the plain versions.  On the
-card, ``flash_attention``, ``rmsnorm`` and ``fused_cross_entropy`` run under
-an ``autograd.Function`` whose forward is the forward kernel and whose
-backward is a backward kernel, whenever an input needs a gradient; without
-one (serving) the forward kernel runs alone, as before.
+card, ``flash_attention``, ``rmsnorm``, ``ssd_scan`` and
+``fused_cross_entropy`` run under an ``autograd.Function`` whose forward is
+the forward kernel and whose backward is a backward kernel, whenever an
+input needs a gradient; without one (serving) the forward kernel runs
+alone, as before.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ KERNELS = {
     "rmsnorm": (_rn, "launches"),
     "rmsnorm_bwd": (_rn, "bwd_launches"),
     "ssd_scan": (_ssd, "launches"),
+    "ssd_scan_bwd": (_ssd, "bwd_launches"),
     "fused_cross_entropy": (_ce, "launches"),
     "fused_cross_entropy_bwd": (_ce, "bwd_launches"),
 }
@@ -124,6 +126,28 @@ def fused_cross_entropy(logits: torch.Tensor,
     return _ce.fused_cross_entropy(logits, labels)[0]
 
 
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state, chunk: int):
+        y, final = _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                 initial_state=initial_state)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.chunk = chunk
+        # An unused output (the final state, in training) passes None.
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = _ssd.ssd_scan_bwd(
+            x, dt, A, Bm, Cm, dy, chunk=ctx.chunk,
+            initial_state=initial_state,
+            dfinal=None if dfinal is None else dfinal.contiguous())
+        return *grads, None
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
              initial_state: torch.Tensor | None = None):
@@ -131,6 +155,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     fp32 initial state [B,H,P,N] -> (y like x, final state fp32)."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+    inputs = (x, dt, A, Bm, Cm) + (() if initial_state is None
+                                   else (initial_state,))
+    if _needs_grad(*inputs):
+        return _SSDScan.apply(x, dt, A, Bm, Cm, initial_state, chunk)
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                          initial_state=initial_state)
 

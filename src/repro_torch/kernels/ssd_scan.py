@@ -18,6 +18,15 @@ float32 runs the CUDA-core kernel of the first port, one launch, since
 bf16 or TF32 products would not hold float32's tolerance.  Nothing falls
 back from one to the other.  :func:`ssd_scan_phases` mirrors the bf16
 kernels' steps and roundings in plain torch for the CPU tests.
+
+:func:`ssd_scan_bwd` launches the backward (``csrc/ssd_scan_bwd.cu``, its
+own library): the gradients of x, dt, A, Bm, Cm and of the initial state
+from dy and an optional d(final state), six CUDA-core kernels per call in
+fp32 over a scratch workspace, both dtypes on one design.  The Pallas
+kernel is forward-only (JAX differentiates the model's jnp scan), so this
+one has no TPU counterpart; its plain version is autograd through
+``ref.ssd_scan_ref``, and :func:`ssd_scan_bwd_phases` mirrors its steps in
+plain torch for the CPU tests.
 """
 
 from __future__ import annotations
@@ -38,11 +47,14 @@ MAX_CHUNK = 4096
 #: ``csrc/ssd_scan.cu``).
 TILE = 64
 
-#: Calls that launched the kernels in this process;
-#: ``ops.reset_launch_counts`` zeroes it.
+#: Calls that launched the forward's kernels in this process, and the
+#: backward's (``csrc/ssd_scan_bwd.cu``); ``ops.reset_launch_counts`` zeroes
+#: both.
 launches = 0
+bwd_launches = 0
 
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -58,7 +70,21 @@ def _kernel():
     return _fn
 
 
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("ssd_scan_bwd").ssd_scan_bwd
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [
+            ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64),
+                                 ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
 def _check(x, dt, A, Bm, Cm, initial_state, chunk: int) -> None:
+    """What both the forward and the backward kernels take."""
     tensors = {"x": x, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm}
     if initial_state is not None:
         tensors["initial_state"] = initial_state
@@ -102,11 +128,13 @@ def _check(x, dt, A, Bm, Cm, initial_state, chunk: int) -> None:
         raise ValueError("ssd_scan: empty batch, sequence or heads")
     if not 1 <= min(chunk, S) <= MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk {chunk} outside [1, {MAX_CHUNK}]")
-    if x.dtype == torch.bfloat16:
-        _check_aligned(x, Bm, Cm, initial_state)
-        if -(-S // min(chunk, S)) > 65535:
-            raise ValueError(f"ssd_scan: {S} rows in chunks of "
-                             f"{min(chunk, S)} exceed 65535 chunks")
+
+
+def _check_chunks(S: int, chunk: int) -> None:
+    """The chunk-parallel kernels run a block row per chunk (gridDim.y)."""
+    if -(-S // min(chunk, S)) > 65535:
+        raise ValueError(f"ssd_scan: {S} rows in chunks of "
+                         f"{min(chunk, S)} exceed 65535 chunks")
 
 
 def _check_aligned(x, Bm, Cm, initial_state) -> None:
@@ -147,6 +175,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``RuntimeError`` if the launch fails."""
     global launches
     _check(x, dt, A, Bm, Cm, initial_state, chunk)
+    if x.dtype == torch.bfloat16:
+        _check_aligned(x, Bm, Cm, initial_state)
+        _check_chunks(x.shape[1], chunk)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
@@ -170,6 +201,82 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError(f"ssd_scan_fwd launch failed: CUDA error {rc}")
     launches += 1
     return y, state
+
+
+def bwd_workspace_bytes(B: int, S: int, H: int, P: int, N: int,
+                        chunk: int) -> int:
+    """Scratch of one backward call (``BwdWorkspace`` in
+    ``csrc/ssd_scan_bwd.cu``, which checks the size it is given), with
+    ``chunk`` as the kernel sees it (``min(chunk, S)``): C.B^T [B, nc, QT,
+    QT] tiles of 64 x 64; the states and their gradients [B, nc, H, P, N];
+    the chunks' totals and shares of dA [B, nc, H]; the heads' partial dB
+    and dC [B, S, H, N]; all fp32."""
+    def align(n):
+        return -(-n // 256) * 256
+    nc, qt = -(-S // chunk), -(-chunk // TILE)
+    return (align(4 * B * nc * qt * qt * TILE * TILE)
+            + 2 * align(4 * B * nc * H * P * N) + 2 * align(4 * B * nc * H)
+            + align(4 * B * S * H * N) + 4 * B * S * H * N)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int, initial_state: torch.Tensor | None = None,
+                 dfinal: torch.Tensor | None = None):
+    """Launch the backward kernels on the current stream: the forward's
+    inputs as in the module docstring, dy [B,S,H,P] like x (contiguous) and
+    an optional fp32 d(final state) [B,H,P,N] (contiguous; zero where None)
+    -> (dx like x, ddt [B,S,H] fp32, dA [H] fp32, dBm and dCm [B,S,N] like
+    x, d(initial state) fp32 where an initial state was given, else None).
+    Raises ``ValueError`` on any input the kernel does not take and
+    ``RuntimeError`` if the launch fails."""
+    global bwd_launches
+    _check(x, dt, A, Bm, Cm, initial_state, chunk)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    _check_chunks(S, chunk)
+    if B > 65535:
+        raise ValueError(f"ssd_scan_bwd: batch {B} exceeds 65535")
+    if (dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape
+            or not dy.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}, got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if dfinal is not None and (
+            dfinal.device != x.device or dfinal.dtype != torch.float32
+            or dfinal.shape != (B, H, P, N) or not dfinal.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: dfinal must be a contiguous float32 "
+                         f"{(B, H, P, N)} on {x.device}, got "
+                         f"{tuple(dfinal.shape)} {dfinal.dtype}")
+    dev = x.device
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dBm = torch.empty((B, S, N), dtype=x.dtype, device=dev)
+    dCm = torch.empty((B, S, N), dtype=x.dtype, device=dev)
+    dinit = (None if initial_state is None else
+             torch.empty((B, H, P, N), dtype=torch.float32, device=dev))
+    strides = (ctypes.c_int64 * 10)(*x.stride()[:3], *dt.stride(),
+                                    *Bm.stride()[:2], *Cm.stride()[:2])
+    Q = min(chunk, S)
+    n_ws = bwd_workspace_bytes(B, S, H, P, N, Q)
+    ws = torch.empty(n_ws, dtype=torch.uint8, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = _bwd_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                Bm.data_ptr(), Cm.data_ptr(), ptr(initial_state),
+                dy.data_ptr(), ptr(dfinal), dx.data_ptr(), ddt.data_ptr(),
+                dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), ptr(dinit),
+                B, S, H, P, N, Q, strides, ws.data_ptr(), n_ws, stream)
+    if rc:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dx, ddt, dA, dBm, dCm, dinit
 
 
 def _split(v: torch.Tensor, rounding: str) -> torch.Tensor:
@@ -242,3 +349,152 @@ def ssd_scan_phases(x, dt, A, Bm, Cm, chunk: int, initial_state=None,
             ys.append(y.to(x.dtype))
     return torch.cat(ys, dim=1), run
 
+
+
+def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
+                        dfinal=None):
+    """The backward kernel's steps (``csrc/ssd_scan_bwd.cu``) in plain
+    torch, for the CPU tests: chunks of ``min(chunk, S)`` rows with the
+    partial last chunk masked, 64-row tiles inside a chunk, products in
+    fp32, the cumulative sums of dt*A and their reverse in fp64 with every
+    exp taken of an fp64 difference, as the kernel keeps them.  Not on any
+    path.  Shapes as in :func:`ssd_scan_bwd`; returns (dx, ddt,
+    dA, dBm, dCm, d initial state or None).
+
+    Per chunk, with cs the cumulative sum of dt*A, total its last valid
+    row, L_ij = exp(cs_i - cs_j) for j <= i, G = C.B^T, D_ij = dy_i.x_j,
+    W = L o dt_j o D and S_in / dS_out the states entering and leaving:
+      dC_i  = sum_j W_ij B_j + exp(cs_i) S_in^T dy_i            (per head)
+      dB_j  = sum_i W_ij C_i + exp(total - cs_j) dt_j dS_out^T x_j
+      w_j   = sum_i (G o L)_ij dy_i + exp(total - cs_j) dS_out B_j
+      dx_j  = dt_j w_j
+      da_t  = sum_{j < t <= i} (G o W)_ij + sum_{t' >= t} dcs_t', with
+      dcs_t = exp(cs_t) dy_t.(S_in C_t) - exp(total - cs_t) dt_t
+              x_t.(dS_out B_t) (+ d total = <S_in, dS_out> exp(total) +
+              sum_j exp(total - cs_j) dt_j x_j.(dS_out B_j) on the last row)
+      ddt_t = A da_t + x_t.w_t
+    and dA sums da_t dt_t over the rows and the batch.  The pairs' part of
+    da is summed over the pairs that straddle t, not as a row sum less a
+    column sum, which cancel (the kernel's "stable" form)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    xf, Bf, Cf, dyf = x.float(), Bm.float(), Cm.float(), dy.float()
+    chunks = [(c0, min(Q, S - c0)) for c0 in range(0, S, Q)]
+    # Step 1: each chunk's cumulative sum and total, its local state and
+    # its local d(state): sum_i exp(cs_i) dy_i (x) C_i.
+    cums, totals, locals_, dlocals = [], [], [], []
+    def exp(e):
+        return torch.exp(e.float())
+
+    for c0, n in chunks:
+        cs = (dt[:, c0:c0 + n] * A).double().cumsum(1)          # [B, n, H]
+        total = cs[:, -1]
+        wx = xf[:, c0:c0 + n] * (dt[:, c0:c0 + n]
+                                 * exp(total[:, None] - cs))[..., None]
+        wdy = dyf[:, c0:c0 + n] * exp(cs)[..., None]
+        cums.append(cs)
+        totals.append(total)
+        locals_.append(torch.einsum("bjhp,bjn->bhpn", wx, Bf[:, c0:c0 + n]))
+        dlocals.append(torch.einsum("bihp,bin->bhpn", wdy, Cf[:, c0:c0 + n]))
+    # Step 2: the states entering the chunks (forward), and the gradients
+    # of the states leaving them (in reverse); d(initial state) last.
+    run = (torch.zeros(Bsz, H, P, N) if initial_state is None
+           else initial_state.float())
+    s_in = []
+    for total, local in zip(totals, locals_):
+        s_in.append(run)
+        run = run * exp(total)[..., None, None] + local
+    run = torch.zeros(Bsz, H, P, N) if dfinal is None else dfinal.float()
+    ds_out = [None] * len(chunks)
+    for c in reversed(range(len(chunks))):
+        ds_out[c] = run
+        run = run * exp(totals[c])[..., None, None] + dlocals[c]
+    dinit = None if initial_state is None else run
+    # Step 3: per chunk, pass A over query tiles I (dC and the rows' part of
+    # d cs), pass B over key tiles J (dB, dx and the columns' part).
+    dx = torch.zeros(Bsz, S, H, P)
+    ddt = torch.zeros(Bsz, S, H)
+    dB_part = torch.zeros(Bsz, S, H, N)
+    dC_part = torch.zeros(Bsz, S, H, N)
+    dA = torch.zeros(H, dtype=torch.float64)
+    for (c0, n), cs, total, st, dst in zip(chunks, cums, totals, s_in,
+                                           ds_out):
+        tiles = [(t0, min(t0 + TILE, n)) for t0 in range(0, n, TILE)]
+
+        def pair(i0, i1, j0, j1):
+            """L, G and D of the tile pair (rows i, columns j)."""
+            i = torch.arange(i0, i1)[:, None]
+            j = torch.arange(j0, j1)[None, :]
+            diff = cs[:, i0:i1, None, :] - cs[:, None, j0:j1, :]
+            L = torch.where((j <= i)[None, :, :, None],
+                            exp(torch.where((j <= i)[None, :, :, None],
+                                            diff, 0.0)), 0.0)
+            G = torch.einsum("bin,bjn->bij", Cf[:, c0 + i0:c0 + i1],
+                             Bf[:, c0 + j0:c0 + j1])
+            D = torch.einsum("bihp,bjhp->bijh", dyf[:, c0 + i0:c0 + i1],
+                             xf[:, c0 + j0:c0 + j1])
+            return L, G[..., None], D
+
+        # dcs: the state terms of d cs; da_pairs: the pairs' part of da,
+        # sum_{j < t <= i} E_ij, summed directly (no cancellation of a row
+        # sum against a column sum).
+        dcs = torch.zeros(Bsz, n, H)
+        da_pairs = torch.zeros(Bsz, n, H)
+        for q0, q1 in tiles:                                   # pass A
+            dC = torch.zeros(Bsz, q1 - q0, H, N)
+            carry = torch.zeros(Bsz, q1 - q0, H)    # sum of E_ij, earlier j
+            i = torch.arange(q0, q1)[:, None]
+            for k0, k1 in tiles:
+                if k0 > q0:
+                    break
+                L, G, D = pair(q0, q1, k0, k1)
+                W = L * dt[:, None, c0 + k0:c0 + k1] * D
+                dC = dC + torch.einsum("bijh,bjn->bihn", W,
+                                       Bf[:, c0 + k0:c0 + k1])
+                E = G * W
+                below = carry[:, :, None] + E.cumsum(2) - E   # sum_{j < t}
+                t = torch.arange(k0, k1)[None, :]
+                da_pairs[:, k0:k1] += torch.where(
+                    (t <= i)[None, :, :, None], below, 0.0).sum(1)
+                carry = carry + E.sum(2)
+            Z = torch.einsum("bihp,bhpn->bihn", dyf[:, c0 + q0:c0 + q1], st)
+            e = exp(cs[:, q0:q1])
+            dC = dC + e[..., None] * Z
+            r = (Z * Cf[:, c0 + q0:c0 + q1, None]).sum(-1)
+            dcs[:, q0:q1] = e * r
+            dC_part[:, c0 + q0:c0 + q1] = dC
+        xw = torch.zeros(Bsz, n, H)
+        dtotal = exp(total) * (st * dst).sum((-1, -2))          # [B, H]
+        for k0, k1 in tiles:                                   # pass B
+            dB = torch.zeros(Bsz, k1 - k0, H, N)
+            u = torch.zeros(Bsz, k1 - k0, H, P)
+            for q0, q1 in tiles:
+                if q1 <= k0:
+                    continue
+                L, G, D = pair(q0, q1, k0, k1)
+                W = L * dt[:, None, c0 + k0:c0 + k1] * D
+                dB = dB + torch.einsum("bijh,bin->bjhn", W,
+                                       Cf[:, c0 + q0:c0 + q1])
+                u = u + torch.einsum("bijh,bihp->bjhp", G * L,
+                                     dyf[:, c0 + q0:c0 + q1])
+            xJ = xf[:, c0 + k0:c0 + k1]
+            dtJ = dt[:, c0 + k0:c0 + k1]
+            v = torch.einsum("bhpn,bjn->bjhp", dst, Bf[:, c0 + k0:c0 + k1])
+            e = exp(total[:, None] - cs[:, k0:k1])              # [B, j, H]
+            w = u + e[..., None] * v
+            dx[:, c0 + k0:c0 + k1] = dtJ[..., None] * w
+            xw[:, k0:k1] = (xJ * w).sum(-1)
+            dB = dB + (e * dtJ)[..., None] * torch.einsum("bhpn,bjhp->bjhn",
+                                                          dst, xJ)
+            dB_part[:, c0 + k0:c0 + k1] = dB
+            q = e * dtJ * (xJ * v).sum(-1)
+            dcs[:, k0:k1] -= q
+            dtotal = dtotal + q.sum(1)
+        dcs[:, n - 1] += dtotal
+        da = (dcs.double().flip(1).cumsum(1).flip(1) + da_pairs).float()
+        ddt[:, c0:c0 + n] = da * A + xw
+        dA = dA + (da.double() * dt[:, c0:c0 + n]).sum((0, 1))
+    # Step 4: the sums over heads.
+    return (dx.to(x.dtype), ddt, dA.float(), dB_part.sum(2).to(Bm.dtype),
+            dC_part.sum(2).to(Cm.dtype), dinit)

@@ -9,11 +9,13 @@ path belongs to the parallel slice of the port):
         --arch mixtral-8x22b-smoke --steps 20 --seq 64 --ckpt-dir ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch whisper-base-smoke --steps 3 --seq 32 --ckpt-dir ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch mamba2-370m-smoke --steps 3 --seq 64 --ckpt-dir ckpt
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU.
-Dense, MoE, VLM and encoder-decoder configs train (the MoE load-balancing
-loss enters the loss with weight ``AUX_LOSS_WEIGHT``); a config with Mamba
-units raises ``NotImplementedError``.  The synthetic batches carry what
+Every family trains: dense, MoE (the load-balancing loss enters the loss
+with weight ``AUX_LOSS_WEIGHT``), Mamba-2 and the jamba hybrid with or
+without experts, VLM and encoder-decoder.  The synthetic batches carry what
 each family takes: ``--seq`` text tokens, plus the VLM's prefix of
 ``n_prefix_tokens`` patch embeddings, or the encoder's frame embeddings (as
 many as tokens, as the JAX pipeline draws them).  The loop is the
@@ -21,7 +23,7 @@ fault-tolerant one: auto-resume, SIGTERM checkpointing, straggler
 detection, async checkpoints.  :func:`setup` builds the model, optimizer,
 data and step for any ``ModelConfig`` (``chip_smoke.py`` passes depth-cut
 ``qwen2-7b``, ``mixtral-8x22b`` and ``llava-next-34b``, and
-``whisper-base``).
+``whisper-base`` and ``mamba2-370m`` at full depth).
 """
 
 from __future__ import annotations

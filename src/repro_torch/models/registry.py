@@ -15,8 +15,8 @@ the loss) always, plus ``prefix`` patch embeddings for the VLM family and
 cache's length; for a VLM it counts the prefix rows.  The encoder-decoder's
 ``init_cache`` raises ``NotImplementedError``, as JAX's does: its decode
 cache holds the encoder's K/V, so it comes from ``prefill``.  ``loss``
-raises ``NotImplementedError`` for a config with Mamba units (the SSM
-family and the jamba hybrid: the SSD backward kernel is a later slice).
+takes every family; on the card a Mamba unit's SSD scans train through the
+SSD backward kernel.
 """
 
 from __future__ import annotations

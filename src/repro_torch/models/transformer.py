@@ -1,5 +1,5 @@
-"""Decoder-only LM backbone: serving for dense, MoE, SSM and hybrid units,
-the train loss for units of attention with a dense or MoE FFN.
+"""Decoder-only LM backbone: serving and the train loss for dense, MoE, SSM
+and hybrid units.
 
 Port of ``repro.models.transformer`` for units of attention or Mamba-2
 mixers with an optional dense or MoE FFN (the dense and moe families,
@@ -12,14 +12,11 @@ parameters are a list with one dict per unit in place of arrays stacked
 over units, and the ``lax.scan`` over units becomes a loop.  Every RMSNorm
 goes through ``ops.rmsnorm`` (the Triton kernel on the card), every prefill
 or train attention through ``ops.flash_attention``, every prefill SSD scan
-through ``ops.ssd_scan`` (the CUDA kernels on the card) and the train loss
-through ``ops.fused_cross_entropy`` (Triton); on the card the train path's
-gradients come from their backward kernels.  The MoE FFN (``moe.moe_ffn``)
-is plain torch with cuBLAS products, as the JAX package computes it.
-
-Training a config with Mamba units (``loss_fn``) raises
-``NotImplementedError``: it needs a backward of the SSD kernel, a later
-slice.
+through ``ops.ssd_scan`` (the CUDA kernels on the card; the train path's
+scans too) and the train loss through ``ops.fused_cross_entropy``
+(Triton); on the card the train path's gradients come from their backward
+kernels.  The MoE FFN (``moe.moe_ffn``) and the Mamba mixer's conv, gates
+and skip are plain torch, as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -136,16 +133,6 @@ def lm_head(params, h, cfg: ModelConfig):
 
 # ----------------------------------------------------------------- training
 
-def _train_layout(cfg: ModelConfig) -> list[dict[str, str | None]]:
-    """``unit_layout`` of a config the train path takes: attention units."""
-    layout = unit_layout(cfg)
-    if any(sub["mixer"] != "attn" for sub in layout):
-        raise NotImplementedError(
-            f"{cfg.name}: training Mamba units needs a backward of the SSD "
-            f"kernel, which comes with a later slice of the port")
-    return layout
-
-
 def _ffn(sp, x, sub, cfg: ModelConfig):
     """The sub-layer's FFN -> (y, router logits or None)."""
     if sub["ffn"] == "moe":
@@ -156,10 +143,13 @@ def _ffn(sp, x, sub, cfg: ModelConfig):
 def _apply_unit_train(h, up, cfg: ModelConfig):
     """-> (h, aux): aux sums each MoE sub-layer's load-balancing loss."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for j, sub in enumerate(_train_layout(cfg)):
+    for j, sub in enumerate(unit_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
-        h = h + attn.attend_train(sp["attn"], x, cfg)
+        if sub["mixer"] == "attn":
+            h = h + attn.attend_train(sp["attn"], x, cfg)
+        else:
+            h = h + mb.mamba_forward(sp["mamba"], x, cfg)[0]
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
             y, router_logits = _ffn(sp, x, sub, cfg)
@@ -180,7 +170,6 @@ def _units_train(params, tokens, cfg: ModelConfig, prefix=None):
     is the sum over units of their MoE load-balancing losses, 0 for dense
     units, as in JAX.
     """
-    _train_layout(cfg)
     h = embed_tokens(params, tokens, cfg, prefix)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for up in params["units"]:

@@ -502,6 +502,251 @@ def test_cuda_cross_entropy_fwd_bwd_matches_plain(cuda, T, V, dtype):
                        else "bfloat16")
 
 
+# The SSD scan's backward kernel against autograd through the plain scan in
+# float32 on the same values, as rtol and times the gradient's largest entry
+# as atol, per output: d(conv output) (dx, dB and dC, in x's dtype) bfloat16
+# 2e-2 (one rounding of each); float32 1e-3 (exp of a chunk's cumulative sum
+# of dt*A in another order errs by ~|cumsum| * 2^-24; dA and ddt sum such
+# terms over every row), which also holds ddt, dA and d(initial state) in
+# either dtype: they are float32 on both sides.
+SSD_BWD_TOLS = {"float32": 1e-3, "bfloat16": 2e-2}
+GPU_SSD_BWD = [  # (B, S, H, P, N, chunk, dtype)
+    (1, 128, 8, 16, 16, 32, "float32"),
+    (2, 256, 4, 32, 64, 64, "float32"),
+    (2, 300, 4, 64, 128, 256, "float32"),   # a partial last chunk
+    (1, 200, 4, 64, 128, 64, "float32"),    # ragged inside the last tile
+    (1, 128, 8, 16, 16, 32, "bfloat16"),
+    (2, 300, 4, 64, 128, 256, "bfloat16"),
+    (2, 257, 4, 64, 128, 256, "bfloat16"),  # a one-row last chunk
+    (2, 1, 4, 64, 128, 256, "bfloat16"),
+    (3, 130, 4, 32, 64, 64, "bfloat16"),
+    (1, 96, 256, 16, 16, 32, "bfloat16"),   # jamba's 256 heads
+    (1, 700, 4, 64, 128, 512, "bfloat16"),  # 8 query tiles a chunk
+    (1, 4200, 2, 64, 128, 4096, "bfloat16"),  # MAX_CHUNK
+]
+
+
+def _ssd_grads(xbc, dt, A, init, dy, dfinal, H, P, N, chunk, scan):
+    """Gradients of sum(y dy) + sum(final dfinal) through ``scan`` of the
+    conv output xbc (x, Bm and Cm its views), dt, A and the initial state."""
+    leaves_ = [t.detach().requires_grad_(True) for t in (xbc, dt, A)]
+    st = None if init is None else init.detach().requires_grad_(True)
+    B, S = xbc.shape[:2]
+    x = leaves_[0][..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = leaves_[0][..., H * P:H * P + N], leaves_[0][..., H * P + N:]
+    y, final = scan(x, leaves_[1], leaves_[2], Bm, Cm, chunk, st)
+    loss = (y * dy.to(y.dtype)).float().sum()
+    if dfinal is not None:
+        loss = loss + (final * dfinal).sum()
+    return torch.autograd.grad(loss, leaves_ + ([] if st is None else [st]))
+
+
+def _ssd_bwd_inputs(B, S, H, P, N, dtype, device, state):
+    xbc = _torch(_normal(0, (B, S, H * P + 2 * N)), dtype, device)
+    dt = torch.nn.functional.softplus(_torch(_normal(1, (B, S, H)), "float32",
+                                             device))
+    A = -torch.exp(0.5 * _torch(_normal(2, (H,)), "float32", device))
+    init = (_torch(0.5 * _normal(3, (B, H, P, N)), "float32", device)
+            if state else None)
+    dy = _torch(_normal(4, (B, S, H, P)), dtype, device)
+    dfinal = (_torch(_normal(5, (B, H, P, N)), "float32", device)
+              if state else None)
+    return xbc, dt, A, init, dy, dfinal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", GPU_SSD_BWD)
+def test_cuda_ssd_scan_bwd_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
+                                         state):
+    """Through ``ops.ssd_scan`` as the model calls it (x, Bm and Cm strided
+    views of one conv output); with ``state`` an initial state and a
+    d(final state)."""
+    xbc, dt, A, init, dy, dfinal = _ssd_bwd_inputs(B, S, H, P, N, dtype,
+                                                   cuda, state)
+    before = (tssd.launches, tssd.bwd_launches)
+    got = _ssd_grads(xbc, dt, A, init, dy, dfinal, H, P, N, chunk,
+                     lambda *a: ops.ssd_scan(*a[:5], chunk=a[5],
+                                             initial_state=a[6]))
+    torch.cuda.synchronize()
+    assert (tssd.launches, tssd.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = _ssd_grads(xbc.float(), dt, A, init, dy.float(), dfinal, H, P, N,
+                      chunk, ref.ssd_scan_ref)
+    for name, g, w in zip(("xbc", "dt", "A", "initial_state"), got, want):
+        tol = SSD_BWD_TOLS[dtype if name == "xbc" else "float32"]
+        w = _np(w)
+        np.testing.assert_allclose(_np(g), w, rtol=tol,
+                                   atol=tol * float(np.abs(w).max()),
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_bwd_is_deterministic(cuda, dtype):
+    """No atomics: two calls give bit-equal gradients."""
+    B, S, H, P, N = 2, 300, 8, 64, 128
+    xbc, dt, A, init, dy, dfinal = _ssd_bwd_inputs(B, S, H, P, N, dtype,
+                                                   cuda, True)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    first = tssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=256,
+                              initial_state=init, dfinal=dfinal)
+    for _ in range(2):
+        again = tssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=256,
+                                  initial_state=init, dfinal=dfinal)
+        assert all(map(torch.equal, first, again))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bwd_refuses_what_it_does_not_take(cuda):
+    B, S, H, P, N = 1, 64, 4, 16, 16
+    xbc, dt, A, init, dy, dfinal = _ssd_bwd_inputs(B, S, H, P, N, "float32",
+                                                   cuda, True)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    before = tssd.bwd_launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tssd.ssd_scan_bwd(x.cpu(), dt, A, Bm, Cm, dy, chunk=32)
+    with pytest.raises(ValueError, match="head_dim, state"):
+        B32 = torch.zeros(B, S, 32, device=cuda)
+        tssd.ssd_scan_bwd(x, dt, A, B32, B32, dy, chunk=32)
+    with pytest.raises(ValueError, match="dy"):
+        tssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy.bfloat16(), chunk=32)
+    with pytest.raises(ValueError, match="dy"):
+        tssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy.transpose(1, 2).contiguous()
+                          .transpose(1, 2), chunk=32)
+    with pytest.raises(ValueError, match="dfinal"):
+        tssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=32,
+                          dfinal=dfinal[:, :2])
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=0)
+    assert tssd.bwd_launches == before
+
+
+# A Mamba model's gradients, card against CPU, as rtol and times the leaf's
+# largest entry: 1e-4, as every model's, but 1e-3 for each mixer's small
+# leaves (dt_bias, D, A_log, one entry a head).  These are sums that cancel
+# to ~1e-3 of their terms, so the card's float32 elementwise torch alone
+# moves them by ~4e-4 (test_cuda_mamba_grads_gain_no_error_from_kernels
+# measures it).
+GRAD_TOL = 1e-4
+MAMBA_GRAD_TOL = 1e-3
+MAMBA_SMALL_LEAVES = ("A_log", "D", "dt_bias")
+
+
+def _grad_tol(path: tuple) -> float:
+    return (MAMBA_GRAD_TOL if "mamba" in path
+            and path[-1] in MAMBA_SMALL_LEAVES else GRAD_TOL)
+
+
+def _mamba_smoke_setups(cuda):
+    """The float32 Mamba-2 smoke with the real head sizes (P 64, N 128,
+    chunk 64; 100 tokens: a partial chunk), set up on the CPU and on the
+    card from the same parameters, and a batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("mamba2-370m").smoke(ssm_head_dim=64, ssm_state=128,
+                                          ssm_chunk=64)
+    t_cpu, t_gpu = (train.setup(cfg, steps=2, batch=2, seq=100, device=d)
+                    for d in ("cpu", "cuda"))
+    s_cpu = t_cpu.init()
+    s_gpu = tree_map(lambda x: x.to(cuda) if isinstance(x, torch.Tensor)
+                     else x, s_cpu)
+    return cfg, (t_cpu, s_cpu), (t_gpu, s_gpu), t_cpu.pipeline.batch_at(0)
+
+
+def _loss_and_grads(t, s, batch, device):
+    """The loss and {leaf path: gradient on the CPU}."""
+    from repro_torch.tree import leaves, leaves_with_path
+
+    for p in leaves(s.params):
+        p.requires_grad_(True)
+    loss, _ = t.model.loss(s.params, {k: torch.from_numpy(v).to(device)
+                                      for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves(s.params))
+    return loss.item(), {path: g.cpu() for (path, _), g in
+                         zip(leaves_with_path(s.params), grads)}
+
+
+def _worst(got, want) -> dict[float, tuple[float, str]]:
+    """For each gradient limit, the largest |got - want| of a leaf held to
+    it over that leaf's largest entry, and the leaf's path."""
+    out: dict[float, tuple[float, str]] = {}
+    for path, b in want.items():
+        rel = float((got[path] - b).abs().max()
+                    / b.abs().max().clamp(min=1e-30))
+        tol = _grad_tol(path)
+        if rel >= out.get(tol, (-1.0, ""))[0]:
+            out[tol] = (rel, "/".join(map(str, path)))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_train_step_matches_cpu(cuda):
+    """One float32 Mamba-2 smoke step on the card (kernels, the SSD backward
+    once per layer) against the CPU (plain versions), from the same
+    parameters: loss within 1e-4, each gradient within its limit
+    (``_grad_tol``) relative and of the leaf's largest entry."""
+    cfg, (t_cpu, s_cpu), (t_gpu, s_gpu), batch = _mamba_smoke_setups(cuda)
+    lc, gc = _loss_and_grads(t_cpu, s_cpu, batch, "cpu")
+    before = tssd.bwd_launches
+    lg, gg = _loss_and_grads(t_gpu, s_gpu, batch, cuda)
+    assert tssd.bwd_launches == before + cfg.n_layers
+    assert abs(lc - lg) <= 1e-4
+    print("largest gradient error of a leaf, card against CPU: "
+          + "; ".join(f"limit {tol:g}: {rel:.2e} ({where})" for tol,
+                      (rel, where) in sorted(_worst(gg, gc).items())))
+    for path, b in gc.items():
+        tol, w = _grad_tol(path), _np(b)
+        np.testing.assert_allclose(_np(gg[path]), w, rtol=tol,
+                                   atol=tol * np.abs(w).max(),
+                                   err_msg="/".join(map(str, path)))
+    s_cpu, m_cpu = t_cpu.train_step(s_cpu, batch)
+    s_gpu, m_gpu = t_gpu.train_step(s_gpu, batch)
+    assert abs(float(m_cpu["loss"]) - float(m_gpu["loss"])) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_grads_gain_no_error_from_kernels(cuda, monkeypatch):
+    """The floor under MAMBA_GRAD_TOL: the same gradients with every kernel
+    (RMSNorm, the SSD scan, the cross-entropy, each both ways) swapped for
+    its plain version on the CPU through differentiable copies, so that
+    only the card's plain torch (products, conv, gates, softplus) runs
+    there.  That alone moves a mixer's small leaves (dt_bias, D, A_log) by
+    well over 1e-4 of their largest entry, and the kernels add no more than
+    a tenth of it.  Both runs' worst leaf under each limit is printed."""
+    _, (t_cpu, s_cpu), (t_gpu, s_gpu), batch = _mamba_smoke_setups(cuda)
+    _, gc = _loss_and_grads(t_cpu, s_cpu, batch, "cpu")
+    with_kernels = _worst(_loss_and_grads(t_gpu, s_gpu, batch, cuda)[1], gc)
+
+    def on_cpu(fn):
+        def run(*args, **kw):
+            def cpu(x):
+                return x.cpu() if isinstance(x, torch.Tensor) else x
+            out = fn(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+            return (tuple(o.to(cuda) for o in out) if isinstance(out, tuple)
+                    else out.to(cuda))
+        return run
+
+    for name in ("rmsnorm", "ssd_scan", "fused_cross_entropy"):
+        monkeypatch.setattr(ops, name, on_cpu(getattr(ops, name)))
+    launches = ops.launch_counts()
+    plain_torch = _worst(_loss_and_grads(t_gpu, s_gpu, batch, cuda)[1], gc)
+    assert ops.launch_counts() == launches   # no kernel ran
+    for name, worst in (("the kernels", with_kernels),
+                        ("the card's plain torch alone", plain_torch)):
+        print(f"largest gradient error of a leaf, card against CPU, with "
+              f"{name}: " + "; ".join(
+                  f"limit {tol:g}: {rel:.2e} ({where})"
+                  for tol, (rel, where) in sorted(worst.items())))
+    assert plain_torch[MAMBA_GRAD_TOL][0] > GRAD_TOL
+    assert with_kernels[MAMBA_GRAD_TOL][0] <= 1.1 * plain_torch[
+        MAMBA_GRAD_TOL][0]
+
+
 @pytest.mark.cuda
 def test_cuda_train_step_matches_cpu(cuda):
     """One float32 smoke train step on the card (kernels) against the CPU

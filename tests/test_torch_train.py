@@ -1,4 +1,5 @@
-"""The port's dense train path against the JAX package, on the CPU.
+"""The port's train path (dense models, and models with Mamba-2 units)
+against the JAX package, on the CPU.
 
 On the CPU the port's ``ops`` run each kernel's plain version and autograd
 differentiates it; the CUDA/Triton kernels and their backward kernels are
@@ -58,7 +59,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import get_model
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import from_jax_params
-from repro_torch.optim.adamw import AdamW, global_norm
+from repro_torch.optim.adamw import AdamW, AdamWState, global_norm
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.state import TrainState, init_state
 from repro_torch.train.step import make_train_step
@@ -316,13 +317,192 @@ def test_forward_train_recomputes_each_unit_once(monkeypatch):
     assert len(calls) == 4 * cfg.n_layers + 1
 
 
-def test_loss_raises_for_mamba_units():
-    model = get_model(get_config("mamba2-370m-smoke"), device="cpu")
+# ------------------------------------------- Mamba-2 and hybrid training
+
+# The SSM family and the jamba hybrid without and with experts.  On the CPU
+# the SSD scans run the plain chunked scan and autograd differentiates it.
+MAMBA_CONFIGS = {"mamba2": ("mamba2-370m", {}),
+                 "jamba": ("jamba-1.5-large-398b", {"n_experts": 0}),
+                 "jamba-moe": ("jamba-1.5-large-398b", {})}
+
+
+def _mamba_configs(name):
+    arch, overrides = MAMBA_CONFIGS[name]
+    return (jget_config(arch).smoke(**overrides),
+            get_config(arch).smoke(**overrides))
+
+
+def _mamba_jax_params(jcfg, seed=0) -> dict:
+    """The JAX init as numpy, with seeded noise on every leaf it sets to a
+    constant: the norm scales, and each Mamba mixer's conv bias, dt bias, D
+    skip and gated-norm scale (and on A_log), so that those paths carry
+    gradients of their own."""
+    params = jax.tree.map(np.asarray, jtf.init_lm(jax.random.PRNGKey(seed),
+                                                  jcfg))
+    rng = np.random.default_rng(seed)
+
+    def noise(a, base):
+        return (base + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+
+    for sp in params["units"].values():
+        for name in ("mixer_norm", "ffn_norm"):
+            if name in sp:
+                sp[name] = noise(sp[name], 1.0)
+        if "mamba" in sp:
+            m = sp["mamba"]
+            for name, base in (("conv_b", 0.0), ("dt_bias", 0.0), ("D", 1.0),
+                               ("norm_scale", 1.0)):
+                m[name] = noise(m[name], base)
+            m["A_log"] = noise(m["A_log"], 0.0) + m["A_log"]
+    params["final_norm"] = noise(params["final_norm"], 1.0)
+    return params
+
+
+@pytest.mark.parametrize("name", list(MAMBA_CONFIGS))
+def test_mamba_loss_and_grads_match_jax(name):
+    """The loss, ce, aux and every gradient leaf of a model with Mamba units
+    against ``jax.grad`` of the JAX loss (48 tokens: a partial chunk of 16
+    after one of 32)."""
+    jcfg, cfg = _mamba_configs(name)
+    assert any(s["mixer"] == "mamba" for s in ttf.unit_layout(cfg))
+    np_params = _mamba_jax_params(jcfg)
+    batch = _batch(cfg)
+    (jloss, jparts), jgrads = jax.value_and_grad(
+        lambda p: jtf.loss_fn(p, {k: jnp.asarray(v) for k, v in
+                                  batch.items()}, jcfg),
+        has_aux=True)(jax.tree.map(jnp.asarray, np_params))
+
+    params = from_jax_params(np_params, cfg, device="cpu")
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss, parts = get_model(cfg, device="cpu").loss(
+        params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves(params))
+
+    for got, want in ((loss, jloss), (parts["ce"], jparts["ce"]),
+                      (parts["aux"], jparts["aux"])):
+        assert got.item() == pytest.approx(float(want), rel=LOSS_RTOL)
+    assert (float(jparts["aux"]) > 0) == cfg.is_moe
+    want = from_jax_params(jax.tree.map(np.asarray, jgrads), cfg, "cpu")
+    names = set()
+    for (path, w), g in zip(leaves_with_path(want), grads):
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        _assert_grad_close(g, w, path)
+        names.add(path[-1])
+    assert {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+            "norm_scale", "out_proj"} <= names
+
+
+def _jax_states(jcfg, np_params, batches, opt_kwargs):
+    """JAX's train state before and after each step, and the step's
+    metrics, as numpy."""
+    opt = jadamw.AdamW(**opt_kwargs)
+    jp = jax.tree.map(jnp.asarray, np_params)
+    state = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=jp,
+                              opt=opt.init(jp), rng=jax.random.PRNGKey(0))
+    step = jax.jit(jstep.make_train_step(jregistry.get_model(jcfg), opt))
+    out = []
+    for b in batches:
+        new, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
+        out.append((jax.tree.map(np.asarray, state),
+                    jax.tree.map(np.asarray, new),
+                    {k: float(v) for k, v in m.items()}))
+        state = new
+    return out
+
+
+# A Mamba mixer's small leaves (dt_bias, D, A_log, one entry a head): sums
+# over batch, rows and head dims that cancel, so at these steps' batches
+# their gradients, and with them the first moments, differ from JAX's by up
+# to ~6e-5 of the leaf's largest entry, 3x GRAD_ATOL_OF_MAX; their moments
+# are held to 2e-4 of it.  A moment carried wrongly between steps errs by
+# the order of the moment itself.
+MAMBA_SMALL_LEAVES = ("A_log", "D", "dt_bias")
+MAMBA_SMALL_ATOL_OF_MAX = 2e-4
+
+
+@pytest.mark.parametrize("name", list(MAMBA_CONFIGS))
+def test_mamba_train_steps_match_jax(name):
+    """Three steps of make_train_step against JAX's, each from JAX's state
+    (parameters and moments) before it: the step's loss, ce, aux and
+    gradient norm, and every parameter within lr, as
+    ``test_train_steps_match_jax``; the moments after it as gradients are
+    held (``_assert_grad_close``; a mixer's small leaves at
+    MAMBA_SMALL_ATOL_OF_MAX), the second moment at twice that (its gradient
+    enters squared).  Each step starts from JAX's state
+    because AdamW's first update turns float-order noise in a gradient
+    entry below ~1e-6 into a parameter difference of up to lr (on the
+    hybrid with experts, a conv bias entry), which moves the next
+    gradient's norm by ~4e-4 relative: a compounded difference of the
+    comparison, not of the step."""
+    jcfg, cfg = _mamba_configs(name)
+    np_params = _mamba_jax_params(jcfg)
+    batches = [_batch(cfg, batch=4, seq=32, step=i) for i in range(3)]
+    opt_kwargs = dict(peak_lr=LR, warmup_steps=1, total_steps=10)
+    model = get_model(cfg, device="cpu")
+    opt = AdamW(**opt_kwargs)
+    step = make_train_step(model, opt)
+    for i, (before, after, jm) in enumerate(
+            _jax_states(jcfg, np_params, batches, opt_kwargs)):
+        state = TrainState(
+            step=i, params=from_jax_params(before.params, cfg, "cpu"),
+            opt=AdamWState(step=int(before.opt.step),
+                           m=from_jax_params(before.opt.m, cfg, "cpu"),
+                           v=from_jax_params(before.opt.v, cfg, "cpu")),
+            rng=1)
+        state, m = step(state, batches[i])
+        assert state.step == i + 1 and state.opt.step == int(after.opt.step)
+        for key in ("loss", "ce", "aux", "grad_norm"):
+            assert float(m[key]) == pytest.approx(jm[key], rel=LOSS_RTOL), key
+        jp = from_jax_params(after.params, cfg, "cpu")
+        for (path, w), p in zip(leaves_with_path(jp), leaves(state.params)):
+            assert p.dtype == w.dtype, path
+            np.testing.assert_allclose(_np(p), _np(w), rtol=LOSS_RTOL,
+                                       atol=LR, err_msg=str(path))
+        for k, (name, want, got) in enumerate(
+                (("m", after.opt.m, state.opt.m),
+                 ("v", after.opt.v, state.opt.v))):
+            for (path, w), g in zip(
+                    leaves_with_path(from_jax_params(want, cfg, "cpu")),
+                    leaves(got)):
+                w = _np(w)
+                atol_of_max = (MAMBA_SMALL_ATOL_OF_MAX
+                               if path[-1] in MAMBA_SMALL_LEAVES
+                               else GRAD_ATOL_OF_MAX)
+                np.testing.assert_allclose(
+                    _np(g), w, rtol=(1 + k) * GRAD_RTOL,
+                    atol=(1 + k) * atol_of_max * max(float(np.abs(w).max()),
+                                                     1e-30),
+                    err_msg=str((name,) + path))
+
+
+@pytest.mark.parametrize("name", list(MAMBA_CONFIGS))
+def test_mamba_forward_train_recomputes_each_scan_once(name, monkeypatch):
+    """Activation checkpointing: each Mamba sub-layer's SSD scan runs once
+    in the forward pass and once more in the backward's recompute (on the
+    card, two forward launches and one of the backward kernel per layer);
+    counted through the plain version."""
+    cfg = _mamba_configs(name)[1]
+    n_mamba = ttf.n_units(cfg) * sum(s["mixer"] == "mamba"
+                                     for s in ttf.unit_layout(cfg))
+    model = get_model(cfg, device="cpu")
     params = model.init(0)
-    batch = {k: torch.from_numpy(v) for k, v in
-             _batch(model.cfg, seq=16).items()}
-    with pytest.raises(NotImplementedError, match="SSD"):
-        model.loss(params, batch)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    calls = []
+    orig = ops.ref.ssd_scan_ref
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return orig(*args)
+
+    monkeypatch.setattr(ops.ref, "ssd_scan_ref", counting)
+    loss, _ = model.loss(params, {k: torch.from_numpy(v) for k, v in
+                                  _batch(cfg).items()})
+    n_forward = len(calls)
+    torch.autograd.grad(loss, leaves(params))
+    assert n_mamba > 0 and n_forward == n_mamba
+    assert len(calls) == 2 * n_mamba
 
 
 # ------------------------------------------------------------- optimizer
@@ -697,6 +877,18 @@ def test_train_cli_on_cpu(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "steps_run=3 final_step=3" in r.stdout
     assert ckpt.latest_step(tmp_path / "ckpt") == 3
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m-smoke",
+                                  "jamba-1.5-large-398b-smoke"])
+def test_train_cli_trains_mamba_units(arch, tmp_path):
+    """The SSM and the hybrid (with experts) through the launcher; 40
+    tokens, a partial chunk of 8."""
+    r = _launch("--arch", arch, "--steps", "2", "--seq", "40",
+                tmp_path=tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert "steps_run=2 final_step=2" in r.stdout
+    assert ckpt.latest_step(tmp_path / "ckpt") == 2
 
 
 def test_train_cli_compress_is_not_ported(tmp_path):
