@@ -14,8 +14,10 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 instructions (HMMA/HGMMA in ``cuobjdump -sass``) and its
                 asynchronous copies (LDGSTS, i.e. cp.async), failing on a
                 spill or on a kernel without either instruction (the SSD
-                backward's CUDA-core kernels are built alongside, their
-                registers and spills printed, and not held to that check);
+                backward's four bf16 product kernels among them; its float32
+                CUDA-core kernels, and its bf16 state pass and sums, which
+                hold no product, are built alongside, their registers and
+                spills printed, and not held to that check);
 3. kernels   -- each of the eight kernels (four forward, four backward)
                 against its plain PyTorch version on the card at the
                 serving and training shapes, with the stated tolerance;
@@ -167,10 +169,22 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # (SSD_STATE_TOL): exp of a chunk's cumulative sum of dt*A in another order
 # errs by ~|cumsum| * 2^-24, and dA and ddt sum such terms over every row
 # (the CPU mirror of the kernel's steps, ssd_scan_bwd_phases, measured
-# within ~1e-4 of the largest entry).  Each check prints the output's
-# median |entry| beside its atol.
+# within ~1e-4 of the largest entry).
 SSD_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 SSD_BWD_ROUNDED = ("x", "Bm", "Cm")   # the outputs in x's dtype
+# In bf16 those three take as atol SSD_BWD_MEDIAN_ATOL times their median
+# |entry|, not a share of their largest: dx's largest entry is ~140 times its
+# median (heads of small |A| carry long sums), so 2e-2 of it passed an error
+# three times a median entry.  Sound, an entry at or below the median errs by
+# at most 0.0050 times the median (measured on an H100: jamba's dx; 0.0026 to
+# 0.0046 in the other bf16 cases: the bf16 rounding, 2^-9, and the hi/lo
+# products), so 2e-2 leaves a 4x margin.  Each check prints that reading, and
+# planted faults of dx's store (_planted_dx_faults) must fail the limit.
+SSD_BWD_MEDIAN_ATOL = 2e-2
+# The bf16 SSD backward's kernels that run products (on wgmma); its state
+# pass, head-group sums and dA sum hold none.
+SSD_BWD_TC_KERNELS = ("ssd_bwd_local_kernel", "ssd_bwd_dc_kernel",
+                      "ssd_bwd_dcs_kernel", "ssd_bwd_db_kernel")
 CE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}   # per-row NLL, fp32 out
 # The forward's fp32 lse against the plain fp32 logsumexp of the same scores
 # (from the same bf16 or fp32 inputs), as rtol and atol: sums over the keys
@@ -307,7 +321,8 @@ def _bf16_tensor_core_kernels() -> dict[str, tuple]:
                                      "flash_bwd_dkv_bf16_kernel"),
                                     flash_args, "hd128"),
             "ssd_scan": (("ssd_cb_kernel", "ssd_chunk_state_kernel",
-                          "ssd_chunk_out_kernel"), ssd_args, "P64_N128")}
+                          "ssd_chunk_out_kernel"), ssd_args, "P64_N128"),
+            "ssd_scan_bwd": (SSD_BWD_TC_KERNELS, ssd_args, "P64_N128")}
 
 
 def _ptxas(log: str) -> dict[str, dict]:
@@ -883,6 +898,9 @@ def _flash_bwd_entry(cfg, fwd: dict) -> dict:
             ms_train=time_ms(
                 lambda q, k, v: fa.flash_attention(q, k, v, return_lse=True),
                 [(q, k, v)], iters=5, warmup=1),
+            plain_ms_train=time_ms(
+                lambda q, k, v: _flash_plain(q, k, v, True), [(q, k, v)],
+                iters=3, warmup=1),
             library_ms_train=time_ms(lambda q, k, v: _sdpa(q, k, v, True),
                                      [(q, k, v)], iters=5, warmup=1),
             bound_ms_train=f_ms, bound_by_train=f_by,
@@ -890,7 +908,8 @@ def _flash_bwd_entry(cfg, fwd: dict) -> dict:
         fwd.update(tflops_train=f_flops / fwd["ms_train"] / 1e9,
                    bound_share_train=f_ms / fwd["ms_train"])
         print(f"  time flash_attention with lse {list(q.shape)}: kernel "
-              f"{fwd['ms_train']:.3f} ms, library (SDPA) "
+              f"{fwd['ms_train']:.3f} ms, plain {fwd['plain_ms_train']:.3f} "
+              f"ms, library (SDPA) "
               f"{fwd['library_ms_train']:.3f} ms, bound {f_ms:.4f} ms "
               f"({f_by}); {fwd['tflops_train']:.1f} TFLOP/s, "
               f"{100 * fwd['bound_share_train']:.1f}% of the bound")
@@ -976,17 +995,64 @@ def _ssd_plain_grads(x, dt, A, Bm, Cm, st, dy, dfinal, chunk: int) -> tuple:
     return torch.autograd.grad(loss, ins)
 
 
-def _check_ssd_grads(label: str, got: list, want: tuple, dtype) -> float:
-    """Each of the backward's outputs within its SSD_BWD_TOL (x's dtype for
-    dx, dB and dC, float32 for the rest), with its median |entry| printed
-    beside the atol; returns the largest error."""
+def _ssd_grad_limit(name: str, want: torch.Tensor, dtype) -> tuple[float,
+                                                                    float]:
+    """(rtol, atol) of the backward's output ``name`` (SSD_BWD_TOL)."""
+    if name in SSD_BWD_ROUNDED and dtype == torch.bfloat16:
+        return (SSD_BWD_TOL[dtype],
+                SSD_BWD_MEDIAN_ATOL * want.abs().median().item())
+    tol = SSD_BWD_TOL[dtype if name in SSD_BWD_ROUNDED else torch.float32]
+    return tol, tol * want.abs().max().item()
+
+
+def _limit_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                 atol: float) -> float:
+    """The largest |got - want| over its allclose bound (> 1 fails)."""
+    return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def _planted_dx_faults(dx: torch.Tensor, want: torch.Tensor,
+                       dt: torch.Tensor) -> dict:
+    """dx as three faults of its store would leave it."""
+    dx = dx.float()
+    swapped = dx.clone()
+    rows = dx.shape[1] // 2 * 2
+    swapped[:, 0:rows:2, -1] = dx[:, 1:rows:2, -1]
+    swapped[:, 1:rows:2, -1] = dx[:, 0:rows:2, -1]
+    small = want.abs() < want.abs().median()
+    return {"dt scaling dropped": dx / dt[..., None],
+            "last head's rows swapped in pairs": swapped,
+            "entries below the median zeroed": dx.masked_fill(small, 0.0)}
+
+
+def _check_ssd_grads(label: str, got: list, want: tuple, dtype,
+                     dt: torch.Tensor) -> float:
+    """Each of the backward's outputs within its limit (_ssd_grad_limit),
+    with its median |entry| and the largest error of the entries at or below
+    the median, over the median, printed beside the atol; in bf16, dx's
+    planted faults (_planted_dx_faults) must fail dx's limit.  Returns the
+    largest error."""
     errs = []
     for n, g, w in zip(("x", "dt", "A", "Bm", "Cm", "initial_state"), got,
                        want):
-        tol = SSD_BWD_TOL[dtype if n in SSD_BWD_ROUNDED else torch.float32]
-        errs.append(check(f"{label} d{n} (median |d{n}| "
-                          f"{w.abs().median().item():.4g})", g, w, tol,
-                          atol=tol * w.abs().max().item()))
+        rtol, atol = _ssd_grad_limit(n, w, dtype)
+        med = w.abs().median().item()
+        small = (g.float() - w).abs()[w.abs() <= med].max().item()
+        errs.append(check(f"{label} d{n} (median |d{n}| {med:.4g}, error "
+                          f"at or below it {small / med:.3g} x median)", g, w,
+                          rtol, atol=atol))
+    if dtype != torch.bfloat16:
+        return max(errs)
+    rtol, atol = _ssd_grad_limit("x", want[0], dtype)
+    former = SSD_BWD_TOL[dtype] * want[0].abs().max().item()
+    for fault, dx in _planted_dx_faults(got[0], want[0], dt).items():
+        ratio = _limit_ratio(dx, want[0], rtol, atol)
+        print(f"  check {label} dx with {fault}: {ratio:.3g} x the limit "
+              f"(atol {atol:.4g}; {_limit_ratio(dx, want[0], rtol, former):.3g}"
+              f" x a limit of atol {former:.4g}, 2e-2 of the largest) "
+              f"{'fails as it must' if ratio > 1 else 'PASSES'}")
+        if ratio <= 1:
+            fail(f"{label}: dx's limit passes a planted fault ({fault})")
     return max(errs)
 
 
@@ -1029,15 +1095,22 @@ def _ssd_bwd_entry() -> dict:
              "replaces": "src/repro/kernels/ssd_scan.py:82",
              "note": "backward of ssd_scan; the TPU kernel is forward-only "
                      "(JAX differentiates the model's jnp scan), so this "
-                     "kernel has no TPU counterpart"}
+                     "kernel has no TPU counterpart; bf16 runs its products "
+                     "on wgmma (seven kernels), float32 on the CUDA cores "
+                     "(six)"}
     # Registers and spills of the kernels at the models' (P, N) = (64, 128)
-    # (the C.B^T kernel by N alone), both dtypes (phase 2 prints them):
-    # CUDA-core kernels, not held to its tensor-core check.
-    entry["build_P64_N128"] = {
-        re.search(r"(ssd_bwd_\w+?_kernel)", name).group(1)
-        + (" bf16" if "bfloat16" in name else " fp32"): info
-        for name, info in _ptxas(build.build_log("ssd_scan_bwd")).items()
-        if "Li128E" in name}
+    # (the C.B^T kernel and the sums by N alone), by dtype (phase 2 prints
+    # them, and holds the bf16 product kernels to its tensor-core check,
+    # HGMMA and no spill); the float32 kernels run on the CUDA cores.
+    def dtype_of(kernel: str, name: str) -> str:
+        return ("bf16" if kernel in SSD_BWD_TC_KERNELS or "bfloat16" in name
+                else "fp32")
+
+    entry["build_P64_N128"] = {}
+    for name, info in _ptxas(build.build_log("ssd_scan_bwd")).items():
+        if "Li128E" in name:
+            kernel = re.search(r"(ssd_bwd_\w+?_kernel)", name).group(1)
+            entry["build_P64_N128"][f"{kernel} {dtype_of(kernel, name)}"] = info
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, S, H, dtype, the model's A, initial state, d(final state), role).
     cases = [(B_T, S_T, cfg.ssm_heads, bf16, True, False, False, "train"),
@@ -1065,7 +1138,7 @@ def _ssd_bwd_entry() -> dict:
             del again
         want = _ssd_plain_grads(x, dt, A, Bm, Cm, st, dy, df, Q)
         err = _check_ssd_grads(label, [t for t in got if t is not None],
-                               want, dtype)
+                               want, dtype, dt)
         del want
         if role not in ("train", "jamba-1.5-large-398b"):
             continue
@@ -1419,8 +1492,11 @@ def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     ssd = _ssd_entry()
     ssd["build_P64_N128"] = {k: built[k] for k in (
         "ssd_cb_kernel", "ssd_chunk_state_kernel", "ssd_chunk_out_kernel")}
+    ssd_bwd = _ssd_bwd_entry()
+    ssd_bwd["build_tensor_cores_P64_N128"] = {k: built[k]
+                                              for k in SSD_BWD_TC_KERNELS}
     entries = [fwd, bwd, _rmsnorm_entry(cfg), _rmsnorm_bwd_entry(cfg), ssd,
-               _ssd_bwd_entry(), *_ce_entries(cfg)]
+               ssd_bwd, *_ce_entries(cfg)]
     torch.cuda.empty_cache()
     moe_cfg = get_config("mixtral-8x22b")
     for name, c in _checks_at(moe_cfg).items():

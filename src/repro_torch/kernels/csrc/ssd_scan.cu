@@ -80,6 +80,7 @@
 #include <cstdint>
 
 #include "flash_mma.cuh"
+#include "ssd_mma.cuh"
 
 namespace {
 
@@ -429,37 +430,9 @@ inline Workspace workspace_layout(int B, int S, int H, int P, int N,
   return w;
 }
 
-// Rounds the fp32 pair (a, b) to bf16 twice: hi = bf16(v), lo = bf16(v - hi).
-// hi + lo carries ~16 bits of v's mantissa, so two bf16 products (hi, lo)
-// into one fp32 accumulator stand for one product with the fp32 operand.
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// The hi and lo A fragments of k step kk from the accumulator n-tiles
-// (2kk, 2kk + 1), as fm::c_to_a forms one.
-__device__ __forceinline__ void c_to_a_split(uint32_t (&hi)[4],
-                                             uint32_t (&lo)[4],
-                                             const float (&c0)[4],
-                                             const float (&c1)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
-}
+using ssd_mma::c_to_a_split;
+using ssd_mma::split2;
+using ssd_mma::zero;
 
 // dt of rows [c0, c0 + len) of one (row, head) into dts, and its cumulative
 // sum times a into cs (warp 0).  Ends in a barrier.
@@ -737,7 +710,6 @@ template <int P, int N>
 __global__ void __launch_bounds__(WG, 1) ssd_chunk_out_kernel(Params p) {
   using Cfg = Bf16Cfg<P, N>;
   constexpr int PP = Cfg::PP, NP = Cfg::NP;
-  using ST = fm::Tile<PP, NP>;
   extern __shared__ __align__(1024) uint4 smem_tiles[];
   fm::bf16* Shi = reinterpret_cast<fm::bf16*>(smem_tiles);  // [PP][NP]
   fm::bf16* Slo = Shi + PP * NP;                            // [PP][NP]
@@ -762,19 +734,9 @@ __global__ void __launch_bounds__(WG, 1) ssd_chunk_out_kernel(Params p) {
   const float* G0 = p.cb + (static_cast<int64_t>(b) * p.nc + c) * p.QT *
                                p.QT * KT * KT;
 
-  // The state entering the chunk: row r's 8-entry group k is 16 bytes of
-  // hi then 16 bytes of lo (step 2).  With step 0's tiles, the first group.
-  {
-    const char* src = reinterpret_cast<const char*>(p.local + bch * P * N);
-    constexpr int CH = NP / 8;
-    for (int i = threadIdx.x; i < PP * CH; i += WG) {
-      const int r = i / CH, k = i % CH;
-      const bool ok = r < P && k < N / 8;
-      const char* at = src + (ok ? (static_cast<int64_t>(r) * N + 8 * k) * 4 : 0);
-      fm::cp_async16(Shi + ST::at(r, k), at, ok);
-      fm::cp_async16(Slo + ST::at(r, k), at + 16, ok);
-    }
-  }
+  // The state entering the chunk (step 2's hi/lo form).  With step 0's
+  // tiles, the first group.
+  ssd_mma::load_state_split<P, N>(Shi, Slo, p.local + bch * P * N);
   fm::load_tile<KT, N, WG, NP>(Cs, Cg, p.c_ss, 0, len);
   fm::load_tile<KT, P, WG, PP>(Xs, x, p.x_ss, 0, len);
   load_g(Gs, G0);

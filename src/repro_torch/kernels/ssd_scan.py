@@ -21,12 +21,17 @@ kernels' steps and roundings in plain torch for the CPU tests.
 
 :func:`ssd_scan_bwd` launches the backward (``csrc/ssd_scan_bwd.cu``, its
 own library): the gradients of x, dt, A, Bm, Cm and of the initial state
-from dy and an optional d(final state), six CUDA-core kernels per call in
-fp32 over a scratch workspace, both dtypes on one design.  The Pallas
+from dy and an optional d(final state), over a scratch workspace.  Its C
+entry point picks its kernels by dtype too: bfloat16 runs every product on
+the tensor cores (seven CUDA kernels per call: the local states, the state
+passes, dC's pairs by head group, dC's carried-state term, dB and dx with
+the end of d(dt*A), the head groups' sums, dA), with the fp32 operands
+split hi/lo as the forward's, and needs 16-byte aligned rows as the
+forward's bf16 kernels do; float32 runs six CUDA-core kernels.  The Pallas
 kernel is forward-only (JAX differentiates the model's jnp scan), so this
 one has no TPU counterpart; its plain version is autograd through
-``ref.ssd_scan_ref``, and :func:`ssd_scan_bwd_phases` mirrors its steps in
-plain torch for the CPU tests.
+``ref.ssd_scan_ref``, and :func:`ssd_scan_bwd_phases` mirrors its steps and
+splits in plain torch for the CPU tests.
 """
 
 from __future__ import annotations
@@ -46,6 +51,11 @@ MAX_CHUNK = 4096
 #: Rows of the bf16 kernels' query and key tiles inside a chunk (``KT`` in
 #: ``csrc/ssd_scan.cu``).
 TILE = 64
+#: Heads whose dB and dC one block of the bf16 backward sums (``HG`` in
+#: ``csrc/ssd_scan_bwd.cu``), and the threads of its state pass
+#: (``PASS_THREADS``), each owning 8 entries of a state.
+HEAD_GROUP = 8
+PASS_THREADS = 256
 
 #: Calls that launched the forward's kernels in this process, and the
 #: backward's (``csrc/ssd_scan_bwd.cu``); ``ops.reset_launch_counts`` zeroes
@@ -71,15 +81,20 @@ def _kernel():
 
 
 def _bwd_kernel():
+    """The backward library's (launch, workspace size) functions."""
     global _bwd_fn
     if _bwd_fn is None:
-        fn = build.load("ssd_scan_bwd").ssd_scan_bwd
+        lib = build.load("ssd_scan_bwd")
+        fn = lib.ssd_scan_bwd
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [
             ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64),
                                  ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _bwd_fn = fn
+        ws = lib.ssd_scan_bwd_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 7
+        ws.restype = ctypes.c_int64
+        _bwd_fn = fn, ws
     return _bwd_fn
 
 
@@ -204,19 +219,35 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def bwd_workspace_bytes(B: int, S: int, H: int, P: int, N: int,
-                        chunk: int) -> int:
-    """Scratch of one backward call (``BwdWorkspace`` in
-    ``csrc/ssd_scan_bwd.cu``, which checks the size it is given), with
-    ``chunk`` as the kernel sees it (``min(chunk, S)``): C.B^T [B, nc, QT,
-    QT] tiles of 64 x 64; the states and their gradients [B, nc, H, P, N];
-    the chunks' totals and shares of dA [B, nc, H]; the heads' partial dB
-    and dC [B, S, H, N]; all fp32."""
+                        chunk: int, dtype: torch.dtype = torch.float32) -> int:
+    """Scratch of one backward call, with ``chunk`` as the kernel sees it
+    (``min(chunk, S)``), as the CUDA library's
+    ``ssd_scan_bwd_workspace_bytes`` gives it (the launcher asks the
+    library; the card tests hold the two equal).
+
+    float32 (``BwdWorkspace``): C.B^T [B, nc, QT, QT] tiles of 64 x 64; the
+    states and their gradients [B, nc, H, P, N]; the chunks' totals and
+    shares of dA [B, nc, H]; the heads' partial dB and dC [B, S, H, N]; all
+    fp32.  bfloat16 (``TcWorkspace``): per (row, head, chunk) rows padded to
+    whole tiles, the cumulative sums of dt*A (fp64), dt and three fp32 parts
+    of d(dt*A); the totals, <S_in, dS_out> per block of the state pass and
+    the shares of dA [B, nc, H]; the states and their gradients [B, nc, H,
+    P, N] fp32; the head groups' partial dB and dC [B, S, ceil(H / 8), N]
+    fp32."""
     def align(n):
         return -(-n // 256) * 256
     nc, qt = -(-S // chunk), -(-chunk // TILE)
-    return (align(4 * B * nc * qt * qt * TILE * TILE)
-            + 2 * align(4 * B * nc * H * P * N) + 2 * align(4 * B * nc * H)
-            + align(4 * B * S * H * N) + 4 * B * S * H * N)
+    states = 2 * align(4 * B * nc * H * P * N)
+    if dtype == torch.float32:
+        return (align(4 * B * nc * qt * qt * TILE * TILE) + states
+                + 2 * align(4 * B * nc * H) + align(4 * B * S * H * N)
+                + 4 * B * S * H * N)
+    rows = B * H * nc * qt * TILE
+    G = -(-H // HEAD_GROUP)
+    npb = -(-(P * N // 8) // PASS_THREADS)
+    return (align(8 * rows) + 4 * align(4 * rows) + 2 * align(4 * B * nc * H)
+            + align(4 * B * nc * H * npb) + states + align(4 * B * S * G * N)
+            + 4 * B * S * G * N)
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -248,6 +279,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan_bwd: dfinal must be a contiguous float32 "
                          f"{(B, H, P, N)} on {x.device}, got "
                          f"{tuple(dfinal.shape)} {dfinal.dtype}")
+    if x.dtype == torch.bfloat16:
+        _check_aligned(x, Bm, Cm, initial_state)
+        for name, t in (("dy", dy), ("dfinal", dfinal)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"ssd_scan_bwd: bfloat16 needs a 16-byte "
+                                 f"aligned {name}, got {t.data_ptr():#x}")
     dev = x.device
     dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
@@ -259,13 +296,13 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     strides = (ctypes.c_int64 * 10)(*x.stride()[:3], *dt.stride(),
                                     *Bm.stride()[:2], *Cm.stride()[:2])
     Q = min(chunk, S)
-    n_ws = bwd_workspace_bytes(B, S, H, P, N, Q)
+    fn, ws_bytes = _bwd_kernel()
+    n_ws = ws_bytes(DTYPES[x.dtype], B, S, H, P, N, Q)
     ws = torch.empty(n_ws, dtype=torch.uint8, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = _bwd_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
@@ -283,12 +320,16 @@ def _split(v: torch.Tensor, rounding: str) -> torch.Tensor:
     """What a product sees of the fp32 operand ``v``: ``"hi_lo"`` the bf16
     pair hi = bf16(v), lo = bf16(v - hi) (two products into one fp32
     accumulator, hi + lo exact in fp32), as the kernels run it; ``"bf16"``
-    one rounding to bf16, which misses the tolerances (tests)."""
+    one rounding to bf16, which misses the tolerances (tests); ``"fp32"``
+    ``v`` itself, as the float32 kernels use it."""
+    if rounding == "fp32":
+        return v
     hi = v.bfloat16().float()
     if rounding == "bf16":
         return hi
     if rounding != "hi_lo":
-        raise ValueError(f"rounding {rounding!r} not in ('hi_lo', 'bf16')")
+        raise ValueError(f"rounding {rounding!r} not in ('hi_lo', 'bf16', "
+                         f"'fp32')")
     return hi + (v - hi).bfloat16().float()
 
 
@@ -352,14 +393,25 @@ def ssd_scan_phases(x, dt, A, Bm, Cm, chunk: int, initial_state=None,
 
 
 def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
-                        dfinal=None):
-    """The backward kernel's steps (``csrc/ssd_scan_bwd.cu``) in plain
+                        dfinal=None, rounding: str = "fp32"):
+    """The backward kernels' steps (``csrc/ssd_scan_bwd.cu``) in plain
     torch, for the CPU tests: chunks of ``min(chunk, S)`` rows with the
     partial last chunk masked, 64-row tiles inside a chunk, products in
     fp32, the cumulative sums of dt*A and their reverse in fp64 with every
-    exp taken of an fp64 difference, as the kernel keeps them.  Not on any
-    path.  Shapes as in :func:`ssd_scan_bwd`; returns (dx, ddt,
-    dA, dBm, dCm, d initial state or None).
+    exp taken of an fp64 difference, as the kernels keep them.  Not on any
+    path.  Shapes as in :func:`ssd_scan_bwd`; returns (dx, ddt, dA, dBm,
+    dCm, d initial state or None).
+
+    ``rounding`` is what the products see of their fp32 operands
+    (:func:`_split`): ``"fp32"`` the values, as the float32 kernels use
+    them; ``"hi_lo"`` the bf16 hi/lo pair where the bf16 tensor-core
+    kernels split (the weighted x and dy of the local states and the
+    weighted x of dB's leaving-state term, the states entering and the
+    gradients leaving the chunks in their products, W summed over each
+    group of ``HEAD_GROUP`` heads for dC, W per head for dB, G o L for w);
+    ``"bf16"`` one bf16 rounding at the same places, which misses the 1e-3
+    limit of ddt, dA or d(initial state) (tests).  <S_in, dS_out>, E = G o
+    W and the sums of d(dt*A) stay fp32 in every mode.
 
     Per chunk, with cs the cumulative sum of dt*A, total its last valid
     row, L_ij = exp(cs_i - cs_j) for j <= i, G = C.B^T, D_ij = dy_i.x_j,
@@ -368,25 +420,31 @@ def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
       dB_j  = sum_i W_ij C_i + exp(total - cs_j) dt_j dS_out^T x_j
       w_j   = sum_i (G o L)_ij dy_i + exp(total - cs_j) dS_out B_j
       dx_j  = dt_j w_j
-      da_t  = sum_{j < t <= i} (G o W)_ij + sum_{t' >= t} dcs_t', with
+      da_t  = sum_{j < t <= i} E_ij + sum_{t' >= t} dcs_t', with E = G o W,
       dcs_t = exp(cs_t) dy_t.(S_in C_t) - exp(total - cs_t) dt_t
               x_t.(dS_out B_t) (+ d total = <S_in, dS_out> exp(total) +
               sum_j exp(total - cs_j) dt_j x_j.(dS_out B_j) on the last row)
       ddt_t = A da_t + x_t.w_t
     and dA sums da_t dt_t over the rows and the batch.  The pairs' part of
     da is summed over the pairs that straddle t, not as a row sum less a
-    column sum, which cancel (the kernel's "stable" form)."""
+    column sum, which cancel (the kernels' "stable" form)."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
     xf, Bf, Cf, dyf = x.float(), Bm.float(), Cm.float(), dy.float()
     chunks = [(c0, min(Q, S - c0)) for c0 in range(0, S, Q)]
-    # Step 1: each chunk's cumulative sum and total, its local state and
-    # its local d(state): sum_i exp(cs_i) dy_i (x) C_i.
-    cums, totals, locals_, dlocals = [], [], [], []
+    groups = [(h0, min(h0 + HEAD_GROUP, H)) for h0 in range(0, H, HEAD_GROUP)]
+
     def exp(e):
         return torch.exp(e.float())
 
+    def split(v):
+        return _split(v, rounding)
+
+    # Step 1: each chunk's cumulative sum and total, its local state
+    # sum_j (dt_j exp(total - cs_j) x_j)^T B_j and its local d(state)
+    # sum_i (exp(cs_i) dy_i)^T C_i.
+    cums, totals, locals_, dlocals = [], [], [], []
     for c0, n in chunks:
         cs = (dt[:, c0:c0 + n] * A).double().cumsum(1)          # [B, n, H]
         total = cs[:, -1]
@@ -395,8 +453,10 @@ def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
         wdy = dyf[:, c0:c0 + n] * exp(cs)[..., None]
         cums.append(cs)
         totals.append(total)
-        locals_.append(torch.einsum("bjhp,bjn->bhpn", wx, Bf[:, c0:c0 + n]))
-        dlocals.append(torch.einsum("bihp,bin->bhpn", wdy, Cf[:, c0:c0 + n]))
+        locals_.append(torch.einsum("bjhp,bjn->bhpn", split(wx),
+                                    Bf[:, c0:c0 + n]))
+        dlocals.append(torch.einsum("bihp,bin->bhpn", split(wdy),
+                                    Cf[:, c0:c0 + n]))
     # Step 2: the states entering the chunks (forward), and the gradients
     # of the states leaving them (in reverse); d(initial state) last.
     run = (torch.zeros(Bsz, H, P, N) if initial_state is None
@@ -411,16 +471,18 @@ def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
         ds_out[c] = run
         run = run * exp(totals[c])[..., None, None] + dlocals[c]
     dinit = None if initial_state is None else run
-    # Step 3: per chunk, pass A over query tiles I (dC and the rows' part of
-    # d cs), pass B over key tiles J (dB, dx and the columns' part).
+    # Step 3: per chunk, pass A over query tiles I (dC, summed over heads,
+    # and the rows' part of d cs), pass B over key tiles J (dB, dx and the
+    # columns' part).
     dx = torch.zeros(Bsz, S, H, P)
     ddt = torch.zeros(Bsz, S, H)
     dB_part = torch.zeros(Bsz, S, H, N)
-    dC_part = torch.zeros(Bsz, S, H, N)
+    dCm = torch.zeros(Bsz, S, N)
     dA = torch.zeros(H, dtype=torch.float64)
     for (c0, n), cs, total, st, dst in zip(chunks, cums, totals, s_in,
                                            ds_out):
         tiles = [(t0, min(t0 + TILE, n)) for t0 in range(0, n, TILE)]
+        st_s, dst_s = split(st), split(dst)
 
         def pair(i0, i1, j0, j1):
             """L, G and D of the tile pair (rows i, columns j)."""
@@ -442,7 +504,7 @@ def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
         dcs = torch.zeros(Bsz, n, H)
         da_pairs = torch.zeros(Bsz, n, H)
         for q0, q1 in tiles:                                   # pass A
-            dC = torch.zeros(Bsz, q1 - q0, H, N)
+            dC = torch.zeros(Bsz, q1 - q0, N)
             carry = torch.zeros(Bsz, q1 - q0, H)    # sum of E_ij, earlier j
             i = torch.arange(q0, q1)[:, None]
             for k0, k1 in tiles:
@@ -450,20 +512,22 @@ def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
                     break
                 L, G, D = pair(q0, q1, k0, k1)
                 W = L * dt[:, None, c0 + k0:c0 + k1] * D
-                dC = dC + torch.einsum("bijh,bjn->bihn", W,
-                                       Bf[:, c0 + k0:c0 + k1])
+                for h0, h1 in groups:
+                    dC = dC + torch.einsum("bij,bjn->bin",
+                                           split(W[..., h0:h1].sum(-1)),
+                                           Bf[:, c0 + k0:c0 + k1])
                 E = G * W
                 below = carry[:, :, None] + E.cumsum(2) - E   # sum_{j < t}
                 t = torch.arange(k0, k1)[None, :]
                 da_pairs[:, k0:k1] += torch.where(
                     (t <= i)[None, :, :, None], below, 0.0).sum(1)
                 carry = carry + E.sum(2)
-            Z = torch.einsum("bihp,bhpn->bihn", dyf[:, c0 + q0:c0 + q1], st)
+            Z = torch.einsum("bihp,bhpn->bihn", dyf[:, c0 + q0:c0 + q1], st_s)
             e = exp(cs[:, q0:q1])
-            dC = dC + e[..., None] * Z
+            dC = dC + (e[..., None] * Z).sum(2)
             r = (Z * Cf[:, c0 + q0:c0 + q1, None]).sum(-1)
             dcs[:, q0:q1] = e * r
-            dC_part[:, c0 + q0:c0 + q1] = dC
+            dCm[:, c0 + q0:c0 + q1] = dC
         xw = torch.zeros(Bsz, n, H)
         dtotal = exp(total) * (st * dst).sum((-1, -2))          # [B, H]
         for k0, k1 in tiles:                                   # pass B
@@ -474,19 +538,19 @@ def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
                     continue
                 L, G, D = pair(q0, q1, k0, k1)
                 W = L * dt[:, None, c0 + k0:c0 + k1] * D
-                dB = dB + torch.einsum("bijh,bin->bjhn", W,
+                dB = dB + torch.einsum("bijh,bin->bjhn", split(W),
                                        Cf[:, c0 + q0:c0 + q1])
-                u = u + torch.einsum("bijh,bihp->bjhp", G * L,
+                u = u + torch.einsum("bijh,bihp->bjhp", split(G * L),
                                      dyf[:, c0 + q0:c0 + q1])
             xJ = xf[:, c0 + k0:c0 + k1]
             dtJ = dt[:, c0 + k0:c0 + k1]
-            v = torch.einsum("bhpn,bjn->bjhp", dst, Bf[:, c0 + k0:c0 + k1])
+            v = torch.einsum("bhpn,bjn->bjhp", dst_s, Bf[:, c0 + k0:c0 + k1])
             e = exp(total[:, None] - cs[:, k0:k1])              # [B, j, H]
             w = u + e[..., None] * v
             dx[:, c0 + k0:c0 + k1] = dtJ[..., None] * w
             xw[:, k0:k1] = (xJ * w).sum(-1)
-            dB = dB + (e * dtJ)[..., None] * torch.einsum("bhpn,bjhp->bjhn",
-                                                          dst, xJ)
+            dB = dB + torch.einsum("bhpn,bjhp->bjhn", dst_s,
+                                   split((e * dtJ)[..., None] * xJ))
             dB_part[:, c0 + k0:c0 + k1] = dB
             q = e * dtJ * (xJ * v).sum(-1)
             dcs[:, k0:k1] -= q
@@ -495,6 +559,6 @@ def ssd_scan_bwd_phases(x, dt, A, Bm, Cm, dy, chunk: int, initial_state=None,
         da = (dcs.double().flip(1).cumsum(1).flip(1) + da_pairs).float()
         ddt[:, c0:c0 + n] = da * A + xw
         dA = dA + (da.double() * dt[:, c0:c0 + n]).sum((0, 1))
-    # Step 4: the sums over heads.
+    # Step 4: dB's sum over heads.
     return (dx.to(x.dtype), ddt, dA.float(), dB_part.sum(2).to(Bm.dtype),
-            dC_part.sum(2).to(Cm.dtype), dinit)
+            dCm.to(Cm.dtype), dinit)

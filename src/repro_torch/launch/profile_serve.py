@@ -36,7 +36,7 @@ from repro_torch.models import get_model
 # "flash_bwd" cover the float32 and the bf16 kernels of each; "ssd_" the
 # float32 SSD kernel and the four bf16 ones (ssd_cb, ssd_chunk_state,
 # ssd_state_pass, ssd_chunk_out), after "ssd_bwd" has taken the backward's
-# six.
+# (six float32 kernels, seven bf16 ones).
 _KERNEL_GROUPS = (("flash_fwd", "flash_attention"),
                   ("flash_bwd", "flash_attention_bwd"),
                   ("ssd_bwd", "ssd_scan_bwd"),

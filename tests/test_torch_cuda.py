@@ -510,6 +510,10 @@ def test_cuda_cross_entropy_fwd_bwd_matches_plain(cuda, T, V, dtype):
 # terms over every row), which also holds ddt, dA and d(initial state) in
 # either dtype: they are float32 on both sides.
 SSD_BWD_TOLS = {"float32": 1e-3, "bfloat16": 2e-2}
+# The bf16 edge cases hold dx, dB and dC apart, each at rtol 2e-2 and as atol
+# this times its median |entry| (chip_smoke.py's SSD_BWD_MEDIAN_ATOL): an
+# error the size of a median entry fails.
+SSD_BWD_MEDIAN_ATOL = 2e-2
 GPU_SSD_BWD = [  # (B, S, H, P, N, chunk, dtype)
     (1, 128, 8, 16, 16, 32, "float32"),
     (2, 256, 4, 32, 64, 64, "float32"),
@@ -579,6 +583,88 @@ def test_cuda_ssd_scan_bwd_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
         np.testing.assert_allclose(_np(g), w, rtol=tol,
                                    atol=tol * float(np.abs(w).max()),
                                    err_msg=f"d{name}")
+
+
+# The bf16 tensor-core backward's edges: (B, S, H, P, N, chunk).  Its
+# blocks sum dB and dC over groups of 8 heads (a partial group at H 6 and
+# H 12), walk 64-row tiles (a chunk under 64 rows), take one row, and
+# jamba-1.5-large's 256 heads at the models' head sizes.
+GPU_SSD_BWD_BF16_EDGES = [
+    (2, 300, 6, 64, 128, 256),
+    (1, 200, 12, 32, 64, 48),
+    (2, 100, 4, 64, 128, 40),
+    (3, 1, 8, 64, 128, 256),
+    (1, 512, 256, 64, 128, 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", GPU_SSD_BWD_BF16_EDGES)
+def test_cuda_ssd_scan_bwd_bf16_edges(cuda, B, S, H, P, N, chunk, state):
+    """As test_cuda_ssd_scan_bwd_matches_plain, in bf16, at the tensor-core
+    kernels' edges; two calls bit-equal."""
+    xbc, dt, A, init, dy, dfinal = _ssd_bwd_inputs(B, S, H, P, N, "bfloat16",
+                                                   cuda, state)
+
+    def kernel():
+        return _ssd_grads(xbc, dt, A, init, dy, dfinal, H, P, N, chunk,
+                          lambda *a: ops.ssd_scan(*a[:5], chunk=a[5],
+                                                  initial_state=a[6]))
+    before = tssd.bwd_launches
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    assert tssd.bwd_launches == before + 2
+    assert all(map(torch.equal, got, again))
+    want = _ssd_grads(xbc.float(), dt, A, init, dy.float(), dfinal, H, P, N,
+                      chunk, ref.ssd_scan_ref)
+    parts = {"x": slice(0, H * P), "Bm": slice(H * P, H * P + N),
+             "Cm": slice(H * P + N, None)}
+    for name, cols in parts.items():
+        w = _np(want[0][..., cols])
+        np.testing.assert_allclose(
+            _np(got[0][..., cols]), w, rtol=SSD_BWD_TOLS["bfloat16"],
+            atol=SSD_BWD_MEDIAN_ATOL * float(np.median(np.abs(w))),
+            err_msg=f"d{name}")
+    for name, g, w in zip(("dt", "A", "initial_state"), got[1:], want[1:]):
+        tol = SSD_BWD_TOLS["float32"]
+        w = _np(w)
+        np.testing.assert_allclose(_np(g), w, rtol=tol,
+                                   atol=tol * float(np.abs(w).max()),
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (4, 4096, 32, 64, 128, 256), (2, 300, 6, 64, 128, 256),
+    (1, 200, 12, 32, 64, 48), (3, 1, 8, 16, 16, 1),
+    (1, 4096, 256, 64, 128, 256)])
+def test_cuda_ssd_scan_bwd_workspace_matches_the_library(cuda, B, S, H, P, N,
+                                                         chunk, dtype):
+    """bwd_workspace_bytes, the layout the CPU tests read, is the size the
+    library's ssd_scan_bwd_workspace_bytes gives the launcher."""
+    _, ws_bytes = tssd._bwd_kernel()
+    dt = getattr(torch, dtype)
+    assert ws_bytes(tssd.DTYPES[dt], B, S, H, P, N, chunk) \
+        == tssd.bwd_workspace_bytes(B, S, H, P, N, chunk, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bwd_refuses_unaligned_bf16_rows(cuda):
+    """The bf16 backward copies rows in 16-byte chunks (cp.async)."""
+    B, S, H, P, N = 1, 64, 4, 16, 16
+    xbc, dt, A, _, dy, _ = _ssd_bwd_inputs(B, S, H, P, N, "bfloat16", cuda,
+                                           False)
+    wide = torch.zeros(B, S, H * P + 2 * N + 1, device=cuda,
+                       dtype=torch.bfloat16)
+    x = wide[..., 1:1 + H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    before = tssd.bwd_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=32)
+    assert tssd.bwd_launches == before
 
 
 @pytest.mark.cuda
