@@ -79,7 +79,25 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 mamba2-370m at full width and depth (48 layers), batch 4 x
                 4096 tokens (the SSD scan's backward kernel once per layer
                 and step);
-7. engine    -- the lockstep fifo engine (``repro_torch.core.simtorch``) at
+7. gradient  -- the card's HBM copy and bf16 matmul rates beside
+                ``roofline/hw.py``'s data sheet; qwen2-7b at full width cut
+                to 8 of its 28 layers, batch 2 x 4096, trained with
+                ``--compress`` (int8 error feedback) through
+                ``launch.train.setup``: a warm-up and three timed steps
+                beside phase 6's plain step, the transform alone (CUDA
+                events), peak memory, ``ef_residual_sq``, the plain step's
+                launch counts; unit 0's gradients and residual, and a
+                seeded mixed-dtype tree with all-zero leaves, compressed on
+                the card and on the CPU, bit for bit; then the same model
+                through ``launch.train_lm.make_dp_step`` at world size 1 on
+                NCCL (a ``FileStore``), its buckets in
+                ``plan_step_comm``'s order under the H100 defaults: the
+                order read from the all-reduces issued (each call's
+                buffer sampled and matched to a bucket, the element counts
+                also read from a ``torch.profiler`` trace), the loss and
+                parameters after one step bit-equal to the plain step's,
+                then two timed steps;
+8. engine    -- the lockstep fifo engine (``repro_torch.core.simtorch``) at
                 the repo's batched-bench setup: each of the six registered
                 scenarios at full size on its registered topology, and
                 ``mixed`` on ``fat_tree``, seeds 0-19 as one batch on the
@@ -89,11 +107,12 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 through ``repro_torch.experiments.run_cells_batched`` on
                 the card, and one warm ``pipe_serve`` batch traced
                 (``torch.profiler``: idle share, kernels per step);
-8. the ``{"serve": ...}``, ``{"train": ...}``, ``{"kernels": [...]}`` and
-   ``{"engine": [...]}`` summary lines, then the ``{"ok": true, ...}`` line.
+9. the ``{"serve": ...}``, ``{"train": ...}``, ``{"grad": ...}``,
+   ``{"kernels": [...]}`` and ``{"engine": [...]}`` summary lines, then the
+   ``{"ok": true, ...}`` line.
 
-Each run of a main path (phases 5 and 6) zeroes the kernels' launch counts
-just before it and reads them just after.
+Each run of a main path (phases 5, 6 and 7) zeroes the kernels' launch
+counts just before it and reads them just after.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Weights are random, drawn on the card from a fixed seed.
@@ -116,11 +135,14 @@ import numpy as np
 import torch
 
 SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))
+
+from repro_torch.roofline import hw  # noqa: E402
 
 # H100 SXM data-sheet peaks (the bound of each kernel is computed from them).
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = hw.HBM_BW
+BF16_TENSOR_FLOPS = hw.PEAK_FLOPS
+FP32_FLOPS = hw.FP32_FLOPS
 
 SEED = 0
 BATCH, GEN = 4, 32
@@ -296,7 +318,7 @@ def phase_device() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    print("[1/8] device")
+    print("[1/9] device")
     print(smi)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
@@ -397,7 +419,7 @@ def phase_build() -> dict[str, dict]:
     from repro_torch.kernels import fused_ce as ce
     from repro_torch.kernels import rmsnorm as rn
 
-    print("[2/8] build")
+    print("[2/9] build")
     t0 = time.perf_counter()
     build.build()
     t_nvcc = time.perf_counter() - t0
@@ -1482,7 +1504,7 @@ def _family_rows(entries: list[dict]) -> None:
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     from repro_torch.configs import get_config
 
-    print("[3/8] kernels against their plain versions")
+    print("[3/9] kernels against their plain versions")
     fwd = _flash_entry(cfg)
     bwd = _flash_bwd_entry(cfg, fwd)
     fwd["build_hd128"] = {"flash_fwd_bf16_kernel":
@@ -1757,7 +1779,7 @@ def phase_reference() -> None:
     from repro_torch.models import get_model
     from repro_torch.tree import tree_map
 
-    print("[4/8] reference: float32 models on the card vs the CPU")
+    print("[4/9] reference: float32 models on the card vs the CPU")
     for arch, overrides, S, frames in REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
         cpu, gpu = get_model(cfg, device="cpu"), get_model(cfg, device="cuda")
@@ -1807,7 +1829,7 @@ def phase_serve(arch: str, batch: int, prompt: int, layers: int,
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
-    print(f"[5/8] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+    print(f"[5/9] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
           + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
              if frames else "")
           + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
@@ -1952,7 +1974,7 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
     # Positions each step runs through the decoder: the text tokens and a
     # VLM's prefix rows.
     tokens = batch * (seq + cfg.n_prefix_tokens)
-    print(f"[6/8] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+    print(f"[6/9] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
           + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
              if frames else "")
           + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
@@ -2039,6 +2061,337 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
     return stats
 
 
+# The gradient path (phase 7): qwen2-7b at full width cut to 8 of its 28
+# layers, batch 2 x 4096, trained with --compress (int8 error feedback)
+# through ``launch.train.setup``, then through ``launch.train_lm``'s DP step
+# at world size 1 on NCCL.  A world-1 sum is the identity, so the DP step's
+# loss and parameters after one step must equal the plain step's bit for
+# bit (tolerance 0); the card's compression must equal the CPU's bit for
+# bit (the same IEEE operations: abs, max, a correctly rounded division,
+# round half to even, a product, a difference).
+GRAD_ARCH, GRAD_LAYERS = "qwen2-7b", 8
+HW_COPY_BYTES = 1 << 30            # per buffer, twice the 50 MB L2
+HW_MATMUL_N = 8192
+
+
+def _hw_rates() -> dict:
+    """The card's HBM copy rate and bf16 matmul rate (CUDA events) beside
+    the data sheet's (``roofline/hw.py``)."""
+    src = torch.empty(HW_COPY_BYTES // 4, device="cuda").uniform_()
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), [()], iters=20)
+    hbm = 2 * HW_COPY_BYTES / (copy_ms / 1e3)
+    del src, dst
+    n = HW_MATMUL_N
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: a @ b, [()], iters=20)
+    flops = 2 * n ** 3 / (mm_ms / 1e3)
+    del a, b
+    torch.cuda.empty_cache()
+    print(f"  HBM copy {hbm / 1e12:.3f} TB/s ({HW_COPY_BYTES >> 20} MiB read "
+          f"+ written, {copy_ms:.3f} ms) against the data sheet's "
+          f"{hw.HBM_BW / 1e12:.2f}; bf16 matmul {n}^3 {flops / 1e12:.1f} "
+          f"TFLOP/s ({mm_ms:.3f} ms) against {hw.PEAK_FLOPS / 1e12:.0f}; "
+          f"NVLink ({hw.LINK_BW / 1e9:.0f} GB/s a direction) not measured: "
+          f"one card")
+    return {"hbm_copy_tb_s": hbm / 1e12, "hbm_sheet_tb_s": hw.HBM_BW / 1e12,
+            "bf16_matmul_tflop_s": flops / 1e12,
+            "bf16_sheet_tflop_s": hw.PEAK_FLOPS / 1e12,
+            "nvlink_sheet_gb_s": hw.LINK_BW / 1e9, "nvlink": "not measured"}
+
+
+def _mixed_tree(g: torch.Generator) -> tuple[dict, dict]:
+    """A seeded (grads, residual) pair: float32 and bf16 leaves with entries
+    of magnitude 1e-6 to 1e2, all-zero leaves (the 1e-12 scale floor) and
+    two units sharing one scale."""
+    from repro_torch.tree import tree_map
+
+    def leaf(shape, dtype):
+        mag = 10.0 ** (8 * torch.rand(shape, generator=g) - 6)
+        return (torch.randn(shape, generator=g) * mag).to(dtype)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    grads = {"a": leaf((4096, 33), f32), "b": leaf((1000, 7), bf16),
+             "zero": torch.zeros(300), "zero_bf16": torch.zeros(17, dtype=bf16),
+             "units": [{"w": leaf((512, 64), bf16), "s": leaf((64,), f32)}
+                       for _ in range(2)]}
+    res = tree_map(lambda x: 1e-3 * torch.randn(x.shape, generator=g), grads)
+    res["zero"].zero_()
+    res["zero_bf16"].zero_()
+    return grads, res
+
+
+def _compress_card_vs_cpu(label: str, grads: dict, res: dict) -> int:
+    """compress_grads on the card against the CPU, bit for bit; returns the
+    entries compared."""
+    from repro_torch.parallel.compression import EFState, compress_grads
+    from repro_torch.tree import leaves, tree_map
+
+    def on(dev, t):
+        return tree_map(lambda x: x.to(dev, copy=True), t)
+
+    dc, ec, mc = compress_grads(on("cuda", grads), EFState(on("cuda", res)))
+    dh, eh, mh = compress_grads(on("cpu", grads), EFState(on("cpu", res)))
+    n = 0
+    for a, b, ra, rb in zip(leaves(dc), leaves(dh), leaves(ec.residual),
+                            leaves(eh.residual)):
+        if not (torch.equal(a.cpu(), b) and torch.equal(ra.cpu(), rb)):
+            fail(f"compression {label}: the card's dequantized gradient or "
+                 f"residual differs from the CPU's")
+        n += a.numel()
+    sq_c, sq_h = float(mc["ef_residual_sq"]), float(mh["ef_residual_sq"])
+    print(f"  compression {label}: {n} entries bit-equal on the card and the "
+          f"CPU; ef_residual_sq {sq_c:.6e} (card) {sq_h:.6e} (CPU)")
+    return n
+
+
+def _train_compressed(cfg, plain: dict) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.parallel import compression
+    from repro_torch.tree import leaves, tree_map
+
+    t = train.setup(cfg, steps=TRAIN_STEPS + 2, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, seed=SEED, device="cuda", compress=True)
+    carry = t.init()
+    batches = [t.pipeline.batch_at(i) for i in range(TRAIN_STEPS + 2)]
+    t0 = time.perf_counter()
+    carry, m = t.train_step(carry, batches[0])
+    losses, ef_sq = [float(m["loss"])], [float(m["ef_residual_sq"])]
+    print(f"  --compress warm-up step {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_s = []
+    for b in batches[1:TRAIN_STEPS + 1]:
+        t0 = time.perf_counter()
+        carry, m = t.train_step(carry, b)
+        losses.append(float(m["loss"]))              # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        ef_sq.append(float(m["ef_residual_sq"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # One more step, unit 0's gradients and residual taken as the
+    # transform receives them, for the card-vs-CPU check.
+    taken = {}
+    real = compression.compress_grads
+
+    def taking(grads, ef):
+        taken["grads"] = tree_map(torch.clone, {"units": grads["units"][:1]})
+        taken["res"] = tree_map(torch.clone,
+                                {"units": ef.residual["units"][:1]})
+        return real(grads, ef)
+
+    compression.compress_grads = taking
+    try:
+        carry, m = t.train_step(carry, batches[-1])
+    finally:
+        compression.compress_grads = real
+    losses.append(float(m["loss"]))
+    state, ef = carry
+    # The transform alone, on zero gradients, as a caller sees it.
+    grads = tree_map(torch.zeros_like, state.params)
+    transform_ms = time_ms(lambda: compression.compress_grads(grads, ef),
+                           [()], iters=3, warmup=1, device_only=False)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    del grads, state, ef, carry
+    torch.cuda.empty_cache()
+    entries = _compress_card_vs_cpu("unit 0's gradients",
+                                    taken["grads"], taken["res"])
+    del taken
+    ms = 1e3 * sum(step_s) / len(step_s)
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+             "seq": TRAIN_SEQ, "params_b": n_params / 1e9,
+             "ms_per_step": ms, "step_ms": [1e3 * x for x in step_s],
+             "plain_ms_per_step": plain["ms_per_step"],
+             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+             "transform_ms": transform_ms, "peak_mem_gb": peak / 1e9,
+             "plain_peak_mem_gb": plain["peak_mem_gb"],
+             "losses": losses, "ef_residual_sq": ef_sq,
+             "card_vs_cpu_entries": entries, "launches": counts}
+    steps = ", ".join(f"{x:.1f}" for x in stats["step_ms"])
+    print(f"  --compress {ms:.1f} ms/step ({steps})"
+          f" against the plain step's {plain['ms_per_step']:.1f}; the "
+          f"transform alone {transform_ms:.1f} ms (CUDA events)")
+    print(f"  peak memory {peak / 1e9:.2f} GB (plain {plain['peak_mem_gb']:.2f});"
+          f" losses {['%.4f' % x for x in losses]}; ef_residual_sq "
+          f"{['%.4e' % x for x in ef_sq]}")
+    print(f"  launches over the timed steps {counts}")
+    want = _expected_train_launches(cfg, TRAIN_STEPS)
+    if counts != want:
+        fail(f"--compress launch counts {counts}, the path implies {want}")
+    if not all(map(math.isfinite, losses + ef_sq)):
+        fail(f"non-finite --compress loss or residual {losses} {ef_sq}")
+    return stats
+
+
+def _comm_events(prof) -> list[int]:
+    """Element counts of the all-reduces in a ``torch.profiler`` trace (the
+    process group's ``nccl:all_reduce`` ranges, else its
+    ``record_param_comms`` events), in start order; empty where the trace
+    records no shapes."""
+    out = []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.name in ("nccl:all_reduce", "gloo:all_reduce") \
+                and e.input_shapes:
+            out.append(math.prod(e.input_shapes[0]))   # [] for the loss
+    if out:
+        return out
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.name == "record_param_comms" and e.input_shapes \
+                and e.input_shapes[0]:
+            shape = e.input_shapes[0]
+            out.append(math.prod(shape[0] if isinstance(shape[0], list)
+                                 else shape))
+    return out
+
+
+def _dp_world1(cfg) -> dict:
+    """``launch.train_lm.make_dp_step`` at world size 1 on NCCL: the
+    issue order read from the calls issued, the loss and parameters after
+    one step against the plain step's, then two timed steps."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train, train_lm
+    from repro_torch.tree import leaves
+
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    order, plan = train_lm.sync_order(cfg, shape, 1, "msa")
+    print(f"  DP step, world 1 on NCCL: plan_step_comm (H100 defaults, 1 "
+          f"chip) bucket order {order}; simulated msa "
+          f"{plan.dag_steps['msa'] * 1e3:.3f} ms, flat "
+          f"{plan.dag_steps['flat'] * 1e3:.3f} ms, overlap "
+          f"{plan.overlap_fraction:.3f}")
+    t = train.setup(cfg, steps=TRAIN_STEPS + 2, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, seed=SEED, device="cuda")
+    batches = [t.pipeline.batch_at(i) for i in range(TRAIN_STEPS)]
+    state = t.init()
+    state, m = t.train_step(state, batches[0])
+    plain_loss = float(m["loss"])
+    plain = [p.detach().cpu() for p in leaves(state.params)]
+    del state, m
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+        try:
+            state = t.init()
+            step = train_lm.make_dp_step(t.model, t.optimizer, order)
+            issued, heads = [], []
+            all_reduce, buckets_of = dist.all_reduce, train_lm.unit_grad_buckets
+
+            def sample(flat: torch.Tensor) -> torch.Tensor:
+                return flat[::max(1, flat.numel() // 64)].clone()
+
+            def recording_all_reduce(x, *args, **kw):
+                issued.append((x.numel(), sample(x.reshape(-1))))
+                return all_reduce(x, *args, **kw)
+
+            def recording_buckets(grads):
+                out = buckets_of(grads)
+                heads[:] = [sample(torch.cat([x.reshape(-1)
+                                              for x in leaves(b)]))
+                            for b in out]
+                return out
+
+            dist.all_reduce = recording_all_reduce
+            train_lm.unit_grad_buckets = recording_buckets
+            try:
+                state, m = step(state, batches[0])
+                loss = float(m["loss"])
+            finally:
+                dist.all_reduce = all_reduce
+                train_lm.unit_grad_buckets = buckets_of
+            # Each bucket's call carries its leaves flattened in leaf order
+            # (one dtype here): 64 entries spread over the buffer name the
+            # bucket.  The last call is the loss's.
+            got = []
+            for n, head in issued[:-1]:
+                match = [i for i, h in enumerate(heads)
+                         if torch.equal(h, head)]
+                if len(match) != 1:
+                    fail(f"DP step: an all-reduce of {n} elements matches "
+                         f"buckets {match}")
+                got.append(match[0])
+            print(f"  issued all-reduces, by bucket: {got} (+ the loss's); "
+                  f"element counts {[n for n, _ in issued]}")
+            if got != order:
+                fail(f"DP step issued its buckets in {got}, the plan says "
+                     f"{order}")
+            if loss != plain_loss:
+                fail(f"DP step loss {loss!r} != the plain step's "
+                     f"{plain_loss!r}")
+            for p, q in zip(leaves(state.params), plain):
+                if not torch.equal(p.detach().cpu(), q):
+                    fail("DP step parameters differ from the plain step's")
+            print(f"  DP step at world 1: loss {loss:.6f} and "
+                  f"{sum(q.numel() for q in plain) / 1e9:.3f} B parameters "
+                  f"bit-equal to the plain step's (tolerance 0)")
+            del plain
+
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            step_s = []
+            for b in batches[1:]:
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                float(m["loss"])
+                step_s.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            with profile(activities=[ProfilerActivity.CPU],
+                         record_shapes=True) as prof:
+                state, m = step(state, batches[0])
+                float(m["loss"])
+            traced = _comm_events(prof)
+        finally:
+            dist.destroy_process_group()
+    want_sizes = [n for n, _ in issued]
+    if traced and traced != want_sizes:
+        fail(f"the trace's collectives carry {traced} elements, the calls "
+             f"{want_sizes}")
+    print(f"  profiler: {len(traced)} collectives with shapes in the trace"
+          + (", element counts equal to the calls'" if traced else
+             " (no shapes recorded; the calls' record stands)"))
+    ms = 1e3 * sum(step_s) / len(step_s)
+    steps = ", ".join(f"{1e3 * x:.1f}" for x in step_s)
+    print(f"  DP step {ms:.1f} ms/step ({steps}); "
+          f"launches over {len(step_s)} steps {counts}")
+    want = _expected_train_launches(cfg, len(step_s))
+    if counts != want:
+        fail(f"DP step launch counts {counts}, the path implies {want}")
+    del state, m
+    torch.cuda.empty_cache()
+    return {"order": order, "issued": got, "plan_steps_s": plan.dag_steps,
+            "overlap": plan.overlap_fraction, "loss": loss,
+            "ms_per_step": ms, "step_ms": [1e3 * x for x in step_s],
+            "traced_comm_sizes": traced, "launches": counts}
+
+
+def phase_grad(plain: dict) -> dict:
+    from repro_torch.configs import get_config
+
+    full = get_config(GRAD_ARCH)
+    cfg = dataclasses.replace(full, n_layers=GRAD_LAYERS)
+    print(f"[7/9] gradient path {cfg.name}: {cfg.n_layers} of "
+          f"{full.n_layers} layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"--compress (int8 error feedback) and the MSA-ordered DP step")
+    rates = _hw_rates()
+    stats = {"hw": rates, "compress": _train_compressed(cfg, plain)}
+    torch.cuda.empty_cache()
+    stats["mixed_tree_entries"] = _compress_card_vs_cpu(
+        "seeded mixed-dtype tree", *_mixed_tree(
+            torch.Generator().manual_seed(SEED)))
+    stats["dp"] = _dp_world1(cfg)
+    return stats
+
+
 def _lane_diff(a, b) -> float:
     """Largest |difference| of two lanes' per-job JCT/CCT and makespans."""
     if set(a.jct) != set(b.jct) or set(a.cct) != set(b.cct):
@@ -2098,7 +2451,7 @@ def phase_engine() -> list[dict]:
 
     cases = [(name, SCENARIO_TOPOLOGY.get(name, "big_switch"))
              for name in sorted(SCENARIOS)] + list(ENGINE_EXTRA)
-    print(f"[7/8] engine: fifo lockstep batches of {ENGINE_SEEDS} seeds at "
+    print(f"[8/9] engine: fifo lockstep batches of {ENGINE_SEEDS} seeds at "
           f"full size, card vs CPU (float64)")
     rows, cpu_lanes, packed = [], {}, {}
     for scenario, topology in cases:
@@ -2162,7 +2515,6 @@ def phase_engine() -> list[dict]:
 
 def main() -> None:
     phase_device()
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
@@ -2178,18 +2530,23 @@ def main() -> None:
     for arch, *shape in TRAINS:
         trains[arch] = phase_train(arch, *shape)
         torch.cuda.empty_cache()
+    grad = phase_grad(trains[GRAD_ARCH])
+    torch.cuda.empty_cache()
     engine = phase_engine()
     paths = {**{f"serve {arch}": st["launches"] for arch, st in serves.items()},
-             **{f"train {arch}": st["launches"] for arch, st in trains.items()}}
+             **{f"train {arch}": st["launches"] for arch, st in trains.items()},
+             f"train {GRAD_ARCH} --compress": grad["compress"]["launches"],
+             f"train {GRAD_ARCH} DP step": grad["dp"]["launches"]}
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in paths.items()}
         if not any(by_path.values()):
             fail(f"{entry['name']} launched on no main path")
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    print("[8/8] summary")
+    print("[9/9] summary")
     print(json.dumps({"serve": serves}))
     print(json.dumps({"train": trains}))
+    print(json.dumps({"grad": grad}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
-"""The port's scheduling core: its copies of the JobDAG model, the fabric
-and the FB workload synth (``metaflow``, ``fabric``, ``workload``), and the
-lockstep fifo engine in torch (``simtorch``).
+"""The port's scheduling core: its copies of the JobDAG model, the fabric,
+the FB workload synth, the numpy event simulator and the five registered
+policies (``metaflow``, ``fabric``, ``workload``, ``simulator``, ``sched``),
+and the lockstep fifo engine in torch (``simtorch``).
 
-The copies hold what the scenario builder and ``simtorch.pack_instance``
-reach and nothing else: a scenario is built and packed here, and the run
-state lives in the engine's tensors, never in the job objects.
+The copies are the reference's modules with the port's imports:
 ``tests/test_torch_scenarios.py`` holds every packed scenario equal to the
-JAX package's.
+JAX package's, and ``tests/test_torch_comm_schedule.py`` every simulation
+of the copied simulator and policies equal to the reference's.
 """
 
 from repro_torch.core.fabric import Fabric, make_topology
 from repro_torch.core.metaflow import EPS, JobDAG
+from repro_torch.core.sched import available_policies, make_scheduler
+from repro_torch.core.simulator import SimResult, Simulator, simulate
 
-__all__ = ["EPS", "Fabric", "JobDAG", "make_topology"]
+__all__ = ["EPS", "Fabric", "JobDAG", "SimResult", "Simulator",
+           "available_policies", "make_scheduler", "make_topology",
+           "simulate"]

@@ -1,29 +1,39 @@
 """Metaflow abstraction: flows, metaflows, compute tasks, and job DAGs.
 
-The port's copy of ``repro.core.metaflow``, cut to what a scenario's
-description needs: the DAG's nodes, their loads, flows and dependencies.
-The reference's run-state fields (``remaining``, ``finish_time``) and its
-scheduler caches are left out, because the lockstep engine
-(``repro_torch.core.simtorch``) keeps the run state in its own tensors and
-never mutates a job.
+The port's copy of ``repro.core.metaflow``, whole: the scenario
+builder, ``simtorch.pack_instance`` and the port's copy of the numpy
+simulator (``repro_torch.core.simulator``) use it.  Only the imports
+differ; ``tests/test_torch_comm_schedule.py`` holds the copy's
+simulations equal to the reference's.
 
 A *metaflow* (the paper's contribution) is the collection of network flows
-consumed by the same computation task in a job's DAG, the smallest unit of
-communication that advances computation.
+consumed by the same computation task in a job's DAG — the smallest unit of
+communication that advances computation.  It sits between per-flow scheduling
+(no application semantics) and coflows (too coarse: hides intra-job DAG
+structure).
 
-  * ``ComputeTask`` nodes carry a load (time units at unit machine speed)
-    and depend on any mix of compute tasks and metaflows.
-  * ``Metaflow`` nodes carry flows (src port -> dst port, size) and may
-    depend on producer compute tasks.
+The DAG model here is a superset of the paper's:
 
-All sizes, loads and capacities are in abstract units.
+  * ``ComputeTask`` nodes carry a load (time units at unit machine speed) and
+    depend on any mix of compute tasks and metaflows.
+  * ``Metaflow`` nodes carry flows (src port -> dst port, size) and may depend
+    on *producer* compute tasks (e.g. a shuffle that only starts once the map
+    stage finished, or a gradient reduce-scatter that only starts once the
+    layer's backward ran).  The paper's single-stage examples have no
+    producers; the training-step DAGs built by ``comm_schedule`` do.
+
+All sizes/loads/capacities are in abstract units (the paper's convention);
+the JAX bridge uses bytes and FLOP-seconds.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 
 EPS = 1e-9
+
+_flow_ids = itertools.count()
 
 
 @dataclass
@@ -33,10 +43,18 @@ class Flow:
     src: int
     dst: int
     size: float
+    id: int = field(default_factory=lambda: next(_flow_ids))
+    remaining: float = field(default=-1.0)
 
     def __post_init__(self) -> None:
         if self.size < 0:
             raise ValueError(f"flow size must be >= 0, got {self.size}")
+        if self.remaining < 0:
+            self.remaining = float(self.size)
+
+    @property
+    def done(self) -> bool:
+        return self.remaining <= EPS
 
 
 @dataclass
@@ -46,10 +64,19 @@ class Metaflow:
     name: str
     flows: list[Flow]
     deps: list[str] = field(default_factory=list)  # producer node names
+    finish_time: float | None = None
 
     @property
     def size(self) -> float:
         return sum(f.size for f in self.flows)
+
+    @property
+    def remaining(self) -> float:
+        return sum(f.remaining for f in self.flows)
+
+    @property
+    def done(self) -> bool:
+        return all(f.done for f in self.flows)
 
 
 @dataclass
@@ -60,10 +87,19 @@ class ComputeTask:
     load: float
     machine: int = -1  # informational; compute is not a contended resource
     deps: list[str] = field(default_factory=list)
+    remaining: float = field(default=-1.0)
+    start_time: float | None = None
+    finish_time: float | None = None
 
     def __post_init__(self) -> None:
         if self.load < 0:
             raise ValueError(f"compute load must be >= 0, got {self.load}")
+        if self.remaining < 0:
+            self.remaining = float(self.load)
+
+    @property
+    def done(self) -> bool:
+        return self.finish_time is not None
 
 
 @dataclass
@@ -74,6 +110,7 @@ class JobDAG:
     tasks: dict[str, ComputeTask] = field(default_factory=dict)
     metaflows: dict[str, Metaflow] = field(default_factory=dict)
     arrival: float = 0.0
+    finish_time: float | None = None
 
     # ------------------------------------------------------------- builders
     def add_task(self, name: str, load: float, machine: int = -1,
@@ -103,6 +140,9 @@ class JobDAG:
             return self.metaflows[name]
         raise KeyError(f"no node {name!r} in job {self.name!r}")
 
+    def node_done(self, name: str) -> bool:
+        return self.node(name).done
+
     def validate(self) -> None:
         """Check the DAG is well-formed: known deps, acyclic."""
         names = set(self.tasks) | set(self.metaflows)
@@ -129,6 +169,116 @@ class JobDAG:
         if seen != len(names):
             raise ValueError(f"job {self.name!r}: dependency cycle detected")
 
+    @property
+    def done(self) -> bool:
+        return (all(t.done for t in self.tasks.values())
+                and all(m.done for m in self.metaflows.values()))
+
+    def consumers_of(self, mf_name: str) -> list[ComputeTask]:
+        """Compute tasks that directly depend on metaflow ``mf_name``."""
+        return [t for t in self.tasks.values() if mf_name in t.deps]
+
+    def unfinished_mf_requirements(self) -> dict[str, frozenset[str]]:
+        """For every node, the set of *unfinished* metaflows transitively
+        required before it can start (a metaflow requires itself).
+
+        This is the primitive behind both MSA gain classes:
+          * direct:   req(consumer) == {m}
+          * indirect: attribute = sum(remaining(m') for m' in req(consumer))
+        """
+        memo: dict[str, frozenset[str]] = {}
+
+        def req(name: str) -> frozenset[str]:
+            if name in memo:
+                return memo[name]
+            memo[name] = frozenset()  # cycle guard; DAG validated elsewhere
+            node = self.node(name)
+            if node.done:
+                memo[name] = frozenset()
+                return memo[name]
+            acc: set[str] = set()
+            if isinstance(node, Metaflow):
+                acc.add(name)
+            for d in node.deps:
+                acc |= req(d)
+            memo[name] = frozenset(acc)
+            return memo[name]
+
+        for n in list(self.tasks) + list(self.metaflows):
+            req(n)
+        return memo
+
+    # ---------------------------------------------------- fast-path caches
+    # Bitmask representation of unfinished_mf_requirements for the
+    # simulator's hot loop: one bit per metaflow, masks recomputed only when
+    # a node finishes (mark_dirty).  Kept consistent with the frozenset
+    # reference above; tests/test_property.py cross-checks the two.
+
+    def _ensure_static_caches(self) -> None:
+        if getattr(self, "_mf_bit", None) is None:
+            self._mf_bit: dict[str, int] = {n: i for i, n
+                                            in enumerate(self.metaflows)}
+            self._bit_name: list[str] = list(self.metaflows)
+            cons: dict[str, list[str]] = {n: [] for n in self.metaflows}
+            for t in self.tasks.values():
+                for d in t.deps:
+                    if d in cons:
+                        cons[d].append(t.name)
+            self._consumers: dict[str, list[str]] = cons
+
+    def mark_dirty(self) -> None:
+        self._masks = None
+
+    def mf_bit(self, name: str) -> int:
+        self._ensure_static_caches()
+        return self._mf_bit[name]
+
+    def consumers(self, name: str) -> list[str]:
+        self._ensure_static_caches()
+        return self._consumers[name]
+
+    def mf_masks(self) -> tuple[dict[str, int], dict[int, float]]:
+        """(masks, mask_load): per-node unfinished-metaflow bitmask, and the
+        total load of unfinished tasks grouped by their exact mask (the
+        'unlockable by exactly this set' aggregate used for direct gains)."""
+        self._ensure_static_caches()
+        if getattr(self, "_masks", None) is not None:
+            return self._masks, self._mask_load
+        masks: dict[str, int] = {}
+        # Iterative post-order (job DAGs from comm_schedule can be deep).
+        for start in list(self.tasks) + list(self.metaflows):
+            if start in masks:
+                continue
+            stack: list[tuple[str, bool]] = [(start, False)]
+            while stack:
+                name, expanded = stack.pop()
+                if name in masks and not expanded:
+                    continue
+                node = self.node(name)
+                if node.done:
+                    masks[name] = 0
+                    continue
+                if not expanded:
+                    stack.append((name, True))
+                    for d in node.deps:
+                        if d not in masks:
+                            stack.append((d, False))
+                else:
+                    m = 0
+                    if isinstance(node, Metaflow):
+                        m |= 1 << self._mf_bit[name]
+                    for d in node.deps:
+                        m |= masks[d]
+                    masks[name] = m
+        mask_load: dict[int, float] = {}
+        for t in self.tasks.values():
+            if not t.done and masks[t.name]:
+                mask_load[masks[t.name]] = (mask_load.get(masks[t.name], 0.0)
+                                            + t.load)
+        self._masks = masks
+        self._mask_load = mask_load
+        return masks, mask_load
+
     # ------------------------------------------------------ template helpers
     def instantiate(self, name: str | None = None,
                     arrival: float | None = None,
@@ -137,12 +287,20 @@ class JobDAG:
                     comm_scale: float = 1.0,
                     compute_scale: float = 1.0,
                     n_ports: int | None = None) -> JobDAG:
-        """Fresh copy of this DAG treated as a template.
+        """Fresh runnable copy of this DAG treated as a template.
 
-        ``port_map`` (exact) or ``port_offset`` (shift) relocates the job
-        on the fabric; ``comm_scale``/``compute_scale`` rescale flow sizes
-        and compute loads.  A mapped endpoint below 0, or at/above
-        ``n_ports`` when the target fabric's size is given, raises here.
+        Simulation mutates jobs (remaining sizes, finish times), so
+        workload mixers build one template DAG and stamp out instances:
+        new flow ids, full remaining sizes, no progress.  ``port_map``
+        (exact) or ``port_offset`` (shift) relocates the job on the
+        fabric; ``comm_scale``/``compute_scale`` rescale flow sizes and
+        compute loads (matching workload regimes across job families).
+
+        Relocation is validated eagerly: a mapped endpoint below 0 —
+        or at/above ``n_ports`` when the target fabric's size is given —
+        raises here, at the placement site, instead of surfacing deep in
+        the simulator's table build (consistent with ``Fabric.degrade``'s
+        index validation).
         """
         if comm_scale < 0 or compute_scale < 0:
             raise ValueError("scale factors must be >= 0")
@@ -218,6 +376,9 @@ def figure2_job() -> JobDAG:
 
     DAG (reconstructed from the attribute arithmetic in Section 2):
       MF1 -> c1;  MF2 -> c2;  c3 deps {c1, MF3};  c4 deps {c2, c3, MF4}
+    which yields the paper's indirect attributes exactly:
+      attr(MF3) = reSize(MF1) + reSize(MF3)
+      attr(MF4) = reSize(MF1) + reSize(MF2) + reSize(MF3) + reSize(MF4)
     """
     j = JobDAG(name="fig2")
     # 4 senders (ports 0..3), 2 receivers (ports 4, 5).

@@ -1,10 +1,11 @@
 """Training launcher CLI.
 
-Port of ``repro.launch.train`` without ``--compress`` (the int8 gradient
-path belongs to the parallel slice of the port):
+Port of ``repro.launch.train``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch qwen2-7b-smoke --steps 100 --ckpt-dir ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch qwen2-7b-smoke --steps 11 --compress
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch mixtral-8x22b-smoke --steps 20 --seq 64 --ckpt-dir ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -20,10 +21,14 @@ each family takes: ``--seq`` text tokens, plus the VLM's prefix of
 ``n_prefix_tokens`` patch embeddings, or the encoder's frame embeddings (as
 many as tokens, as the JAX pipeline draws them).  The loop is the
 fault-tolerant one: auto-resume, SIGTERM checkpointing, straggler
-detection, async checkpoints.  :func:`setup` builds the model, optimizer,
-data and step for any ``ModelConfig`` (``chip_smoke.py`` passes depth-cut
-``qwen2-7b``, ``mixtral-8x22b`` and ``llava-next-34b``, and
-``whisper-base`` and ``mamba2-370m`` at full depth).
+detection, async checkpoints.  ``--compress`` sends the gradients through
+int8 quantization with error feedback (``parallel.compression``) in a
+minimal local loop without checkpoints, as the JAX launcher does, and
+prints the residual energy every 10 steps.  :func:`setup` builds the
+model, optimizer, data and step for any ``ModelConfig``, compressed or not
+(``chip_smoke.py`` passes depth-cut ``qwen2-7b``, ``mixtral-8x22b`` and
+``llava-next-34b``, and ``whisper-base`` and ``mamba2-370m`` at full
+depth).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.models import get_model
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamW
+from repro_torch.parallel.compression import (EFState, init_ef,
+                                              make_compressing_step)
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.state import TrainState, init_state
 from repro_torch.train.step import make_train_step
@@ -53,21 +60,48 @@ class Trainer(NamedTuple):
     optimizer: AdamW
     pipeline: SyntheticTokens
     train_step: Callable
-    init: Callable[[], TrainState]
+    init: Callable[[], TrainState | tuple[TrainState, EFState]]
 
 
 def setup(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           lr: float = 3e-4, microbatches: int = 1, seed: int = 0,
-          device: str | torch.device = "cuda") -> Trainer:
+          device: str | torch.device = "cuda",
+          compress: bool = False) -> Trainer:
     """The launcher's model, optimizer (warm-up over the first fifth of
-    ``steps``, at most 20), synthetic data from ``seed`` and train step."""
+    ``steps``, at most 20), synthetic data from ``seed`` and train step.
+    With ``compress`` the step is ``make_compressing_step``'s and ``init``
+    returns its carry, ``(TrainState, EFState)``."""
     model = get_model(cfg, device=device)
     opt = AdamW(peak_lr=lr, warmup_steps=min(20, steps // 5 + 1),
                 total_steps=steps)
     pipe = SyntheticTokens(cfg, batch=batch, seq=seq, seed=seed)
+    if compress:
+        def init():
+            state = init_state(model, opt, seed)
+            return state, init_ef(state.params)
+
+        return Trainer(model, opt, pipe,
+                       make_compressing_step(model, opt, microbatches), init)
     step = make_train_step(model, opt, microbatches=microbatches)
     return Trainer(model, opt, pipe, step,
                    lambda: init_state(model, opt, seed))
+
+
+def train_compressed(t: Trainer, steps: int) -> list[float]:
+    """The compressed path's minimal loop (no checkpoints): a line with the
+    loss and ``ef_residual_sq`` every 10 steps, then the means of the
+    first and last five losses."""
+    carry = t.init()
+    losses = []
+    for i in range(steps):
+        carry, metrics = t.train_step(carry, t.pipeline.batch_at(i))
+        losses.append(float(metrics["loss"]))
+        if i % 10 == 0:
+            print(f"step {i:5d} loss {losses[-1]:.4f} "
+                  f"ef_sq {float(metrics['ef_residual_sq']):.3e}")
+    print(f"done: first5={np.mean(losses[:5]):.4f} "
+          f"last5={np.mean(losses[-5:]):.4f}")
+    return losses
 
 
 def main() -> None:
@@ -83,17 +117,17 @@ def main() -> None:
                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compress", action="store_true",
-                    help="int8 + error-feedback gradient path (not ported)")
+                    help="int8 + error-feedback gradient path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    if args.compress:
-        raise NotImplementedError("--compress (int8 error-feedback gradients) "
-                                  "comes with the parallel slice of the port")
 
     t = setup(get_config(args.arch), steps=args.steps, batch=args.batch,
               seq=args.seq, lr=args.lr, microbatches=args.microbatches,
-              seed=args.seed, device=args.device)
+              seed=args.seed, device=args.device, compress=args.compress)
+    if args.compress:
+        train_compressed(t, args.steps)
+        return
     lcfg = loop_lib.LoopConfig(total_steps=args.steps,
                                ckpt_every=args.ckpt_every,
                                ckpt_dir=args.ckpt_dir)

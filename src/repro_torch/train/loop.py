@@ -31,6 +31,9 @@ class LoopConfig:
     keep: int = 3
     ewma_alpha: float = 0.1
     straggler_factor: float = 2.5   # step > factor * ewma -> flagged
+    # False on every data-parallel rank but the first: the ranks hold equal
+    # states, one writes them and every rank resumes from what it wrote.
+    write_checkpoints: bool = True
 
 
 @dataclass
@@ -86,11 +89,13 @@ def run(train_step: Callable, init_state: Callable[[], TrainState],
             report.steps_run += 1
             report.losses.append(loss)
 
-            if step % cfg.ckpt_every == 0 or step == cfg.total_steps:
+            if cfg.write_checkpoints and (step % cfg.ckpt_every == 0
+                                          or step == cfg.total_steps):
                 saver.save(step, state)
             if stop["now"]:
                 saver.wait()
-                ckpt_lib.save(ckpt_dir, step, state)   # sync final save
+                if cfg.write_checkpoints:
+                    ckpt_lib.save(ckpt_dir, step, state)   # sync final save
                 report.preempted = True
                 break
         report.final_step = step

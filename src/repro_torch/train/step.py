@@ -19,7 +19,7 @@ import torch
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.state import TrainState
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, unflatten
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -76,7 +76,7 @@ def make_train_step(model: Model, optimizer: AdamW,
             del g32
             loss = loss * inv
             parts = {k: v / microbatches for k, v in parts_sum.items()}
-        grads = _unflatten(params, grads)
+        grads = unflatten(params, grads)
 
         if grad_transform is not None:
             grads = grad_transform(grads)
@@ -88,8 +88,3 @@ def make_train_step(model: Model, optimizer: AdamW,
 
     return train_step
 
-
-def _unflatten(tree, flat: list):
-    """A tree like ``tree`` holding ``flat``'s items in leaf order."""
-    it = iter(flat)
-    return tree_map(lambda _: next(it), tree)

@@ -34,6 +34,12 @@ def leaves(tree: Any) -> list[Any]:
     return [leaf for _, leaf in leaves_with_path(tree)]
 
 
+def unflatten(tree: Any, flat: list) -> Any:
+    """A tree like ``tree`` holding ``flat``'s items in leaf order."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     ``rest`` (trees of the same structure), keeping the structure; called

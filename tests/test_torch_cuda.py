@@ -986,3 +986,199 @@ def test_cuda_engine_lanes_match_cpu(cuda, scenario, topology):
             x, y = getattr(a, key), getattr(b, key)
             assert set(x) == set(y)
             assert max(abs(x[n] - y[n]) for n in y) <= 1e-6
+
+
+# ------------------------------------------------- the gradient path
+
+def _compression_tree(dtype: str, seed: int = 0) -> tuple[dict, dict]:
+    """Seeded grads (magnitudes 1e-6 to 1e2, an all-zero leaf, two units
+    sharing one scale) and fp32 residuals."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(*shape):
+        mag = 10.0 ** rng.uniform(-6, 2, shape)
+        return torch.from_numpy((rng.standard_normal(shape) * mag).astype(
+            np.float32)).to(getattr(torch, dtype))
+
+    grads = {"embed": leaf(1000, 33), "zero": leaf(64) * 0,
+             "units": [{"w": leaf(128, 96), "b": leaf(96)} for _ in range(2)]}
+    res = {"embed": torch.zeros(1000, 33), "zero": torch.zeros(64),
+           "units": [{"w": torch.from_numpy(
+                          1e-3 * rng.standard_normal((128, 96)).astype(
+                              np.float32)),
+                      "b": torch.zeros(96)} for _ in range(2)]}
+    return grads, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_compression_bit_equal_to_cpu(cuda, dtype):
+    """``compress_grads`` on the card equals the CPU's bit for bit (the
+    same IEEE operations; the division is correctly rounded on both);
+    ``ef_residual_sq`` sums in another order (1e-6 relative)."""
+    from repro_torch.parallel.compression import EFState, compress_grads
+    from repro_torch.tree import leaves, tree_map
+
+    grads, res = _compression_tree(dtype)
+    dc, ec, mc = compress_grads(tree_map(lambda x: x.to(cuda), grads),
+                                EFState(tree_map(lambda x: x.to(cuda), res)))
+    dh, eh, mh = compress_grads(grads, EFState(res))
+    for a, b in zip(leaves(dc) + leaves(ec.residual),
+                    leaves(dh) + leaves(eh.residual)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    assert float(mc["ef_residual_sq"]) == pytest.approx(
+        float(mh["ef_residual_sq"]), rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_ordered_psum_issue_order(cuda, tmp_path):
+    """World 1 on NCCL: the all-reduces go out in the given order (a
+    recording wrapper around the call) and a one-rank sum is the input."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import collectives as col
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), world_size=1, rank=0)
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def recording(t, *args, **kw):
+        calls.append(t.numel())
+        return all_reduce(t, *args, **kw)
+
+    dist.all_reduce = recording
+    try:
+        g = torch.Generator(device=cuda).manual_seed(0)
+        buckets = [torch.randn(n, device=cuda, generator=g)
+                   for n in (8, 16, 32, 64)]
+        out = col.ordered_psum(buckets, [2, 0, 3, 1])
+        assert calls == [32, 8, 64, 16]
+        assert all(torch.equal(a, b) for a, b in zip(out, buckets))
+        scattered = col.ordered_psum_scatter(
+            [{"w": b.reshape(-1, 4)} for b in buckets], [3, 2, 1, 0])
+        assert all(torch.equal(s["w"], b.reshape(-1, 4))
+                   for s, b in zip(scattered, buckets))
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+
+
+# The DP launcher's preset on the cards: "full" (head_dim 64); the tiny
+# preset's head_dim 32 is not one the flash kernels take.
+DP_CARD_PRESET = "full"
+
+
+def _dp_card_rank(rank: int, world: int, tmp: str, steps: int) -> None:
+    """One NCCL rank of the DP launcher's step on card ``rank``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train_lm
+    from repro_torch.models import get_model
+    from repro_torch.train.state import init_state
+    from repro_torch.tree import leaves
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=world, rank=rank)
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def recording(t, *args, **kw):
+        calls.append(t.numel())
+        return all_reduce(t, *args, **kw)
+
+    dist.all_reduce = recording
+    try:
+        cfg = train_lm.preset_config(DP_CARD_PRESET)
+        p = train_lm.PRESETS[DP_CARD_PRESET]
+        shape = ShapeConfig("example", seq_len=p["seq"],
+                            global_batch=p["batch"] * world, kind="train")
+        order, _ = train_lm.sync_order(cfg, shape, world, "msa")
+        model = get_model(cfg, device=f"cuda:{rank}")
+        opt = train_lm.make_optimizer(p["steps"])
+        state = init_state(model, opt, 0)
+        step = train_lm.make_dp_step(model, opt, order)
+        pipe = SyntheticTokens(cfg, batch=shape.global_batch, seq=p["seq"])
+        losses, norms = [], []
+        for i in range(steps):
+            state, m = step(state, train_lm.rank_rows(pipe.batch_at(i), rank,
+                                                      world))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        torch.save({"order": order, "calls": calls, "losses": losses,
+                    "norms": norms,
+                    "params": [x.detach().cpu() for x in
+                               leaves(state.params)]},
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_dp_step_on_every_card_matches_one_card(cuda, tmp_path):
+    """The DP launcher's step (its ``full`` preset, float32) on every card
+    (one NCCL rank each, MSA order), three steps with its optimizer: the
+    ranks' parameters bit-equal; parameters within 1e-5, and losses and
+    gradient norms within 1e-5 relative, of one card's step on the global
+    batch (the CPU test's limits, ``tests/test_torch_collectives.py``);
+    one all-reduce per bucket in the plan's order, then the loss's."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train_lm
+    from repro_torch.models import get_model
+    from repro_torch.parallel.collectives import unit_grad_buckets
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    world, steps = torch.cuda.device_count(), 3
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices")
+    ctx = mp.start_processes(_dp_card_rank,
+                             args=(world, str(tmp_path), steps),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail("ranks still running after 300 s")
+    outs = [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+
+    cfg = train_lm.preset_config(DP_CARD_PRESET)
+    p = train_lm.PRESETS[DP_CARD_PRESET]
+    model = get_model(cfg, device=cuda)
+    opt = train_lm.make_optimizer(p["steps"])
+    state = init_state(model, opt, 0)
+    sizes = [sum(x.numel() for x in leaves(b))
+             for b in unit_grad_buckets(state.params)]
+    step = make_train_step(model, opt)
+    pipe = SyntheticTokens(cfg, batch=p["batch"] * world, seq=p["seq"])
+    losses, norms = [], []
+    for i in range(steps):
+        state, m = step(state, pipe.batch_at(i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    shape = ShapeConfig("example", seq_len=p["seq"],
+                        global_batch=p["batch"] * world, kind="train")
+    order, plan = train_lm.sync_order(cfg, shape, world, "msa")
+    assert order == plan.order + [len(sizes) - 1]
+    for out in outs:
+        assert out["order"] == order
+        assert out["calls"] == steps * ([sizes[i] for i in out["order"]]
+                                        + [1])
+        np.testing.assert_allclose(out["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(out["norms"], norms, rtol=1e-5)
+        for a, b in zip(out["params"], outs[0]["params"]):
+            assert torch.equal(a, b)
+    for got, want in zip(outs[0]["params"], leaves(state.params)):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)

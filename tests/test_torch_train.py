@@ -892,6 +892,10 @@ def test_train_cli_trains_mamba_units(arch, tmp_path):
 
 
 def test_train_cli_compress_is_not_ported(tmp_path):
+    """``--compress`` runs the int8 error-feedback path in the JAX
+    launcher's minimal loop, which writes no checkpoint
+    (``tests/test_torch_compression.py`` holds the path to JAX)."""
     r = _launch("--compress", "--steps", "1", tmp_path=tmp_path)
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "parallel slice" in r.stderr
+    assert r.returncode == 0, r.stderr
+    assert "ef_sq" in r.stdout and "done: first5=" in r.stdout
+    assert ckpt.latest_step(tmp_path / "ckpt") is None
