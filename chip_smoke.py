@@ -107,11 +107,23 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 through ``repro_torch.experiments.run_cells_batched`` on
                 the card, and one warm ``pipe_serve`` batch traced
                 (``torch.profiler``: idle share, kernels per step);
-9. the ``{"serve": ...}``, ``{"train": ...}``, ``{"grad": ...}``,
-   ``{"kernels": [...]}`` and ``{"engine": [...]}`` summary lines, then the
-   ``{"ok": true, ...}`` line.
+9. layouts   -- the per-card bytes of every architecture's train state
+                under ``state_specs`` on the production mesh's shapes
+                (data=32, model=8) and (pod=2, data=32, model=8); then
+                qwen2-7b at full width cut to 8 of its 28 layers, batch 2 x
+                4096, through ``launch.train.setup(..., mesh=...)`` on a
+                (data=1, model=1) NCCL mesh (the FSDP x TP layout applied:
+                the state built as DTensors from the seed, the kernels on
+                the local shards): the loss and parameters after one step
+                against the plain step's, bit for bit (or every differing
+                leaf named and held within 2e-2), its kernel launches equal
+                to the plain step's, then two timed steps beside phase 6's
+                plain ms/step;
+10. the ``{"serve": ...}``, ``{"train": ...}``, ``{"grad": ...}``,
+   ``{"kernels": [...]}``, ``{"engine": [...]}`` and ``{"layouts": ...}``
+   summary lines, then the ``{"ok": true, ...}`` line.
 
-Each run of a main path (phases 5, 6 and 7) zeroes the kernels' launch
+Each run of a main path (phases 5, 6, 7 and 9) zeroes the kernels' launch
 counts just before it and reads them just after.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -318,7 +330,7 @@ def phase_device() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    print("[1/9] device")
+    print("[1/10] device")
     print(smi)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
@@ -419,7 +431,7 @@ def phase_build() -> dict[str, dict]:
     from repro_torch.kernels import fused_ce as ce
     from repro_torch.kernels import rmsnorm as rn
 
-    print("[2/9] build")
+    print("[2/10] build")
     t0 = time.perf_counter()
     build.build()
     t_nvcc = time.perf_counter() - t0
@@ -1504,7 +1516,7 @@ def _family_rows(entries: list[dict]) -> None:
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     from repro_torch.configs import get_config
 
-    print("[3/9] kernels against their plain versions")
+    print("[3/10] kernels against their plain versions")
     fwd = _flash_entry(cfg)
     bwd = _flash_bwd_entry(cfg, fwd)
     fwd["build_hd128"] = {"flash_fwd_bf16_kernel":
@@ -1779,7 +1791,7 @@ def phase_reference() -> None:
     from repro_torch.models import get_model
     from repro_torch.tree import tree_map
 
-    print("[4/9] reference: float32 models on the card vs the CPU")
+    print("[4/10] reference: float32 models on the card vs the CPU")
     for arch, overrides, S, frames in REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
         cpu, gpu = get_model(cfg, device="cpu"), get_model(cfg, device="cuda")
@@ -1829,7 +1841,7 @@ def phase_serve(arch: str, batch: int, prompt: int, layers: int,
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
-    print(f"[5/9] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+    print(f"[5/10] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
           + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
              if frames else "")
           + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
@@ -1974,7 +1986,7 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
     # Positions each step runs through the decoder: the text tokens and a
     # VLM's prefix rows.
     tokens = batch * (seq + cfg.n_prefix_tokens)
-    print(f"[6/9] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+    print(f"[6/10] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
           + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
              if frames else "")
           + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
@@ -2379,7 +2391,7 @@ def phase_grad(plain: dict) -> dict:
 
     full = get_config(GRAD_ARCH)
     cfg = dataclasses.replace(full, n_layers=GRAD_LAYERS)
-    print(f"[7/9] gradient path {cfg.name}: {cfg.n_layers} of "
+    print(f"[7/10] gradient path {cfg.name}: {cfg.n_layers} of "
           f"{full.n_layers} layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
           f"--compress (int8 error feedback) and the MSA-ordered DP step")
     rates = _hw_rates()
@@ -2390,6 +2402,150 @@ def phase_grad(plain: dict) -> dict:
             torch.Generator().manual_seed(SEED)))
     stats["dp"] = _dp_world1(cfg)
     return stats
+
+
+# The layouts (phase 9): the gradient path's qwen2-7b (full width, 8 of 28
+# layers, 2 x 4096, bf16) through ``launch.train.setup(..., mesh=...)`` on a
+# (data=1, model=1) NCCL mesh: the state built as DTensors from the seed
+# (``distribute_state``), the batch's rows placed by ``batch_specs``, the
+# kernels on the local shards.  At world 1 every collective is the identity
+# and every local tensor the whole one, so the loss and the parameters after
+# one step are held to the plain step's bit for bit, and the kernel launches
+# to the plain step's; the ms/step difference is DTensor's host dispatch.
+LAYOUT_ARCH, LAYOUT_LAYERS = GRAD_ARCH, GRAD_LAYERS
+
+
+def _state_bytes_per_card(multi_pod: bool) -> dict[str, float]:
+    """Per-card bytes of each architecture's train state (bf16 params and
+    fp32 moments) under ``state_specs`` on the production mesh's shape."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch.mesh import production_shape
+    from repro_torch.launch.specs import state_struct
+    from repro_torch.parallel.sharding import state_specs
+    from repro_torch.tree import leaves
+
+    shape = production_shape(multi_pod=multi_pod)
+    sizes = dict(zip(shape.axis_names, shape.axis_sizes))
+    out = {}
+    for arch in ARCH_NAMES:
+        st = state_struct(get_config(arch))
+        total = 0.0
+        for x, spec in zip(leaves(st), leaves(state_specs(st, shape))):
+            if not isinstance(x, torch.Tensor):
+                continue
+            split = 1
+            for entry in spec:
+                for a in (entry if isinstance(entry, tuple)
+                          else (entry,) if entry else ()):
+                    split *= sizes[a]
+            total += x.numel() * x.element_size() / split
+        out[arch] = total
+    return out
+
+
+def phase_layouts(plain: dict) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import leaves
+
+    full = get_config(LAYOUT_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LAYOUT_LAYERS)
+    print(f"[9/10] layouts: {cfg.name} {cfg.n_layers} of {full.n_layers} "
+          f"layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, FSDP x TP on a "
+          f"(data=1, model=1) NCCL mesh")
+    per_card = {pod: _state_bytes_per_card(pod) for pod in (False, True)}
+    for arch in per_card[False]:
+        print(f"  {arch}: train state per card "
+              f"{per_card[False][arch] / 1e9:.2f} GB on (data=32, model=8), "
+              f"{per_card[True][arch] / 1e9:.2f} GB on (pod=2, data=32, "
+              f"model=8)")
+    kw = dict(steps=TRAIN_STEPS + 2, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              seed=SEED, device="cuda")
+    t = train.setup(cfg, **kw)
+    batches = [t.pipeline.batch_at(i) for i in range(TRAIN_STEPS)]
+    state = t.init()
+    ops.reset_launch_counts()
+    state, m = t.train_step(state, batches[0])
+    want_counts = ops.launch_counts()
+    plain_loss = float(m["loss"])
+    want = [p.detach().cpu() for p in leaves(state.params)]
+    del state, m
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+        try:
+            mesh = make_test_mesh(1, 1, device_type="cuda")
+            ts = train.setup(cfg, mesh=mesh, **kw)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = ts.init()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            init_peak = torch.cuda.max_memory_allocated()
+            ops.reset_launch_counts()
+            state, m = ts.train_step(state, batches[0])
+            counts = ops.launch_counts()
+            loss = float(m["loss"])
+            differ = []
+            for i, (p, q) in enumerate(zip(leaves(state.params), want)):
+                got = p.detach().full_tensor().cpu()
+                if not torch.equal(got, q):
+                    differ.append((i, float((got.float() - q.float()).abs()
+                                            .max()),
+                                   float(q.float().abs().max())))
+            print(f"  sharded init {init_s:.2f} s, peak "
+                  f"{init_peak / 1e9:.2f} GB; one step: loss {loss!r}, the "
+                  f"plain step's {plain_loss!r}; launches {counts}")
+            if counts != want_counts:
+                fail(f"sharded step launches {counts}, the plain step's "
+                     f"{want_counts}")
+            if loss != plain_loss or differ:
+                print(f"  NOT bit-equal: {len(differ)} of {len(want)} leaves"
+                      f" differ (index, max |diff|, max |p|): {differ[:8]}")
+                if abs(loss - plain_loss) > 2e-2 * abs(plain_loss) or any(
+                        d > 2e-2 * s for _, d, s in differ):
+                    fail("sharded step outside the bf16 limit (2e-2)")
+            else:
+                print(f"  loss and {sum(q.numel() for q in want) / 1e9:.3f} "
+                      f"B parameters bit-equal to the plain step's "
+                      f"(tolerance 0)")
+            del want
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            step_s = []
+            for b in batches[1:]:
+                t0 = time.perf_counter()
+                state, m = ts.train_step(state, b)
+                float(m["loss"])
+                step_s.append(time.perf_counter() - t0)
+            timed_counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            dist.destroy_process_group()
+    ms = 1e3 * sum(step_s) / len(step_s)
+    print(f"  sharded step {ms:.1f} ms/step "
+          f"({', '.join(f'{1e3 * x:.1f}' for x in step_s)}) against the plain"
+          f" step's {plain['ms_per_step']:.1f} (phase 6): DTensor's host "
+          f"dispatch {ms - plain['ms_per_step']:+.1f} ms; peak "
+          f"{peak / 1e9:.2f} GB (plain {plain['peak_mem_gb']:.2f})")
+    if timed_counts != _expected_train_launches(cfg, len(step_s)):
+        fail(f"sharded step launch counts {timed_counts}")
+    del state, m
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "bit_equal": not differ and loss == plain_loss,
+            "differ": differ[:8], "loss": loss, "plain_loss": plain_loss,
+            "ms_per_step": ms, "step_ms": [1e3 * x for x in step_s],
+            "plain_ms_per_step": plain["ms_per_step"], "peak_mem_gb":
+            peak / 1e9, "init_s": init_s, "init_peak_gb": init_peak / 1e9,
+            "state_bytes_per_card": per_card, "launches": timed_counts}
 
 
 def _lane_diff(a, b) -> float:
@@ -2451,7 +2607,7 @@ def phase_engine() -> list[dict]:
 
     cases = [(name, SCENARIO_TOPOLOGY.get(name, "big_switch"))
              for name in sorted(SCENARIOS)] + list(ENGINE_EXTRA)
-    print(f"[8/9] engine: fifo lockstep batches of {ENGINE_SEEDS} seeds at "
+    print(f"[8/10] engine: fifo lockstep batches of {ENGINE_SEEDS} seeds at "
           f"full size, card vs CPU (float64)")
     rows, cpu_lanes, packed = [], {}, {}
     for scenario, topology in cases:
@@ -2533,22 +2689,26 @@ def main() -> None:
     grad = phase_grad(trains[GRAD_ARCH])
     torch.cuda.empty_cache()
     engine = phase_engine()
+    torch.cuda.empty_cache()
+    layouts = phase_layouts(trains[LAYOUT_ARCH])
     paths = {**{f"serve {arch}": st["launches"] for arch, st in serves.items()},
              **{f"train {arch}": st["launches"] for arch, st in trains.items()},
              f"train {GRAD_ARCH} --compress": grad["compress"]["launches"],
-             f"train {GRAD_ARCH} DP step": grad["dp"]["launches"]}
+             f"train {GRAD_ARCH} DP step": grad["dp"]["launches"],
+             f"train {LAYOUT_ARCH} sharded (1x1 mesh)": layouts["launches"]}
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in paths.items()}
         if not any(by_path.values()):
             fail(f"{entry['name']} launched on no main path")
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    print("[9/9] summary")
+    print("[10/10] summary")
     print(json.dumps({"serve": serves}))
     print(json.dumps({"train": trains}))
     print(json.dumps({"grad": grad}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"layouts": layouts}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,11 +29,24 @@ model, optimizer, data and step for any ``ModelConfig``, compressed or not
 (``chip_smoke.py`` passes depth-cut ``qwen2-7b``, ``mixtral-8x22b`` and
 ``llava-next-34b``, and ``whisper-base`` and ``mamba2-370m`` at full
 depth).
+
+``--mesh DATAxMODEL`` trains under the FSDP x TP layout of
+``parallel.sharding`` (the counterpart of lowering the reference's
+``make_train_step`` under ``state_specs``/``batch_specs``): it starts
+DATA*MODEL ranks with ``torch.multiprocessing`` (gloo on the CPU, NCCL
+with one card a rank), builds the state as DTensors from the seed
+(``distribute_state``), splits each global batch's rows over ``data``
+(``batch_specs``) and runs ``make_sharded_step`` in a minimal loop
+without checkpoints (a sharded checkpoint is later work); ``--moe-ep``
+takes the expert-parallel MoE rules.  :func:`setup` takes the mesh
+itself (``mesh=``) for a caller that has started its ranks.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import os
 import tempfile
 from collections.abc import Callable
@@ -53,6 +66,7 @@ from repro_torch.parallel.compression import (EFState, init_ef,
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.state import TrainState, init_state
 from repro_torch.train.step import make_train_step
+from repro_torch.tree import tree_map
 
 
 class Trainer(NamedTuple):
@@ -63,18 +77,80 @@ class Trainer(NamedTuple):
     init: Callable[[], TrainState | tuple[TrainState, EFState]]
 
 
+def sharding_rules(mesh):
+    """The context the sharded step runs in: the logical mesh, and plain
+    tensors (rotary tables, masks, zeros) read as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel import axes as ax
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(ax.logical_mesh(mesh))
+    stack.enter_context(implicit_replication())
+    return stack
+
+
+def make_sharded_step(model: Model, optimizer: AdamW, mesh):
+    """``make_train_step`` on a state of DTensors (``distribute_state``):
+    (state, global batch) -> (state, metrics).
+
+    The batch's rows are split over ``data`` by ``batch_specs``; the loss
+    and the metrics come back whole (plain tensors, equal on every rank).
+    Each gradient arrives in its parameter's placements: a unit's sharded
+    weights through the reduce-scatter that is the backward of their FSDP
+    gather, the replicated leaves (norm scales, biases under TP, the Mamba
+    mixers' small leaves) through one explicit all-reduce of their pending
+    sums, before AdamW runs unchanged on the DTensors."""
+    from repro_torch.parallel import axes as ax
+    from repro_torch.parallel.sharding import distribute_batch
+
+    def loss(params, batch):
+        value, parts = model.loss(params, batch)
+        return ax.full(value), {k: ax.full(v) for k, v in parts.items()}
+
+    target: dict = {}
+
+    def to_param_placements(grads):
+        return tree_map(lambda g, pl: g.redistribute(placements=pl),
+                        grads, target["placements"])
+
+    inner = make_train_step(dataclasses.replace(model, loss=loss), optimizer,
+                            grad_transform=to_param_placements)
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        target["placements"] = tree_map(lambda p: tuple(p.placements),
+                                        state.params)
+        with sharding_rules(mesh):
+            state, metrics = inner(state, distribute_batch(batch, mesh))
+        return state, {k: ax.full(v) if isinstance(v, torch.Tensor) else v
+                       for k, v in metrics.items()}
+
+    return step
+
+
 def setup(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           lr: float = 3e-4, microbatches: int = 1, seed: int = 0,
           device: str | torch.device = "cuda",
-          compress: bool = False) -> Trainer:
+          compress: bool = False, mesh=None) -> Trainer:
     """The launcher's model, optimizer (warm-up over the first fifth of
     ``steps``, at most 20), synthetic data from ``seed`` and train step.
     With ``compress`` the step is ``make_compressing_step``'s and ``init``
-    returns its carry, ``(TrainState, EFState)``."""
+    returns its carry, ``(TrainState, EFState)``.  With a ``mesh`` (a
+    ``DeviceMesh`` over the running ranks; ``device`` is then each rank's
+    own) the step is ``make_sharded_step``'s and ``init`` builds the state
+    as DTensors (``distribute_state``)."""
     model = get_model(cfg, device=device)
     opt = AdamW(peak_lr=lr, warmup_steps=min(20, steps // 5 + 1),
                 total_steps=steps)
     pipe = SyntheticTokens(cfg, batch=batch, seq=seq, seed=seed)
+    if mesh is not None:
+        if compress or microbatches != 1:
+            raise ValueError("--mesh takes neither --compress nor "
+                             "--microbatches")
+        from repro_torch.parallel.sharding import distribute_state
+
+        return Trainer(model, opt, pipe, make_sharded_step(model, opt, mesh),
+                       lambda: distribute_state(model, opt, seed, mesh))
     if compress:
         def init():
             state = init_state(model, opt, seed)
@@ -104,6 +180,78 @@ def train_compressed(t: Trainer, steps: int) -> list[float]:
     return losses
 
 
+def parse_mesh(text: str) -> tuple[int, int]:
+    """"DATAxMODEL" -> (data, model)."""
+    try:
+        data, model = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh {text!r}: expected DATAxMODEL, e.g. 2x2") from None
+    if data < 1 or model < 1:
+        raise argparse.ArgumentTypeError(f"--mesh {text!r}: sizes >= 1")
+    return data, model
+
+
+def train_sharded(t: Trainer, steps: int, say=print) -> list[float]:
+    """The sharded path's minimal loop (no checkpoints): the loss and
+    gradient norm of every step, then the first and last losses."""
+    state = t.init()
+    losses = []
+    for i in range(steps):
+        state, metrics = t.train_step(state, t.pipeline.batch_at(i))
+        losses.append(float(metrics["loss"]))
+        say(f"step {i:5d} loss {losses[-1]:.4f} "
+            f"grad_norm {float(metrics['grad_norm']):.4f}", flush=True)
+    say(f"done: first={losses[0]:.4f} last={losses[-1]:.4f}", flush=True)
+    return losses
+
+
+def _mesh_rank(rank: int, args, rendezvous: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    data, model = args.mesh
+    world = data * model
+    if args.device == "cuda":
+        torch.cuda.set_device(rank)
+        backend, device = "nccl", torch.device("cuda", rank)
+    else:   # the ranks share the host's threads
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+        backend, device = "gloo", torch.device(args.device)
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}",
+                            world_size=world, rank=rank)
+    try:
+        cfg = get_config(args.arch)
+        if args.moe_ep:
+            cfg = dataclasses.replace(cfg, moe_ep=True)
+        mesh = make_test_mesh(data, model, device_type=device.type)
+        t = setup(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                  lr=args.lr, seed=args.seed, device=device, mesh=mesh)
+        say = print if rank == 0 else (lambda *a, **k: None)
+        say(f"mesh (data={data}, model={model}) on {backend}: {cfg.name}",
+            flush=True)
+        losses = train_sharded(t, args.steps, say)
+        if rank == 0 and not all(np.isfinite(losses)):
+            raise RuntimeError(f"non-finite loss {losses}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh(args) -> None:
+    """Start the mesh's ranks and wait for them."""
+    import torch.multiprocessing as mp
+
+    world = args.mesh[0] * args.mesh[1]
+    if args.device == "cuda" and world > torch.cuda.device_count():
+        raise RuntimeError(f"--mesh {args.mesh[0]}x{args.mesh[1]} needs "
+                           f"{world} cards, {torch.cuda.device_count()} "
+                           f"found")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_mesh_rank, args=(args, os.path.join(tmp, "rendezvous")),
+                 nprocs=world, join=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b-smoke",
@@ -120,7 +268,14 @@ def main() -> None:
                     help="int8 + error-feedback gradient path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", type=parse_mesh, default=None,
+                    help="DATAxMODEL ranks under the FSDP x TP layout")
+    ap.add_argument("--moe-ep", action="store_true",
+                    help="with --mesh: the expert-parallel MoE rules")
     args = ap.parse_args()
+    if args.mesh is not None:
+        run_mesh(args)
+        return
 
     t = setup(get_config(args.arch), steps=args.steps, batch=args.batch,
               seq=args.seq, lr=args.lr, microbatches=args.microbatches,

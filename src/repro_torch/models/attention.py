@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rotary, dense_init, rotary_cos_sin
+from repro_torch.parallel import axes as ax
 
 
 class KVCache(NamedTuple):
@@ -124,8 +125,12 @@ def attend_train(p, x, cfg: ModelConfig, *, is_causal: bool = True):
     same function wherever the port calls it)."""
     B, S, _ = x.shape
     q, k, v = _rotary_qkv(p, x, cfg)
+    q = ax.shard(q, ax.BATCH, None, ax.TP, None)
+    k = ax.shard(k, ax.BATCH, None, ax.TP if cfg.n_kv_heads > 1 else None,
+                 None)
     out = ops.flash_attention(q, k, v, causal=is_causal,
                               window=cfg.sliding_window if is_causal else 0)
+    out = ax.shard(out, ax.BATCH, None, ax.TP, None)
     return out.reshape(B, S, -1) @ p["wo"]
 
 

@@ -34,7 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import cdtype, dense_init, embed_init
 from repro_torch.models.mlp import init_mlp, mlp
-from repro_torch.models.transformer import cross_entropy
+from repro_torch.models.transformer import assemble, cross_entropy
+from repro_torch.parallel import axes as ax
 
 
 def sinusoid_at(positions: torch.Tensor, D: int, dtype) -> torch.Tensor:
@@ -54,44 +55,48 @@ def _ones(cfg: ModelConfig, dtype, device) -> torch.Tensor:
     return torch.ones((cfg.d_model,), dtype=dtype, device=device)
 
 
+def init_encdec_parts(generator: torch.Generator, cfg: ModelConfig,
+                     device):
+    """``init_encdec``'s entries as ``(key, value)`` in the order it draws
+    them, the layers one at a time (``("enc_layers", layer)``, ...)."""
+    dtype = cdtype(cfg)
+    yield "embed", embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
+                              device)
+    for _ in range(cfg.n_enc_layers):
+        yield "enc_layers", {
+            "attn_norm": _ones(cfg, dtype, device),
+            "attn": attn.init_attn(generator, cfg, dtype, device),
+            "mlp_norm": _ones(cfg, dtype, device),
+            "mlp": init_mlp(generator, cfg, dtype, device)}
+    yield "enc_norm", _ones(cfg, dtype, device)
+    for _ in range(cfg.n_layers):
+        yield "dec_layers", {
+            "self_norm": _ones(cfg, dtype, device),
+            "self_attn": attn.init_attn(generator, cfg, dtype, device),
+            "cross_norm": _ones(cfg, dtype, device),
+            "cross_attn": attn.init_cross_attn(generator, cfg, dtype,
+                                               device),
+            "mlp_norm": _ones(cfg, dtype, device),
+            "mlp": init_mlp(generator, cfg, dtype, device)}
+    yield "final_norm", _ones(cfg, dtype, device)
+    yield "lm_head", dense_init(generator, cfg.d_model, (cfg.vocab_size,),
+                                dtype, device)
+
+
 def init_encdec(generator: torch.Generator, cfg: ModelConfig,
                 device) -> dict:
     """Random weights drawn on ``device`` from ``generator``, with the JAX
     module's distributions."""
-    dtype = cdtype(cfg)
-
-    def enc_layer():
-        return {"attn_norm": _ones(cfg, dtype, device),
-                "attn": attn.init_attn(generator, cfg, dtype, device),
-                "mlp_norm": _ones(cfg, dtype, device),
-                "mlp": init_mlp(generator, cfg, dtype, device)}
-
-    def dec_layer():
-        return {"self_norm": _ones(cfg, dtype, device),
-                "self_attn": attn.init_attn(generator, cfg, dtype, device),
-                "cross_norm": _ones(cfg, dtype, device),
-                "cross_attn": attn.init_cross_attn(generator, cfg, dtype,
-                                                   device),
-                "mlp_norm": _ones(cfg, dtype, device),
-                "mlp": init_mlp(generator, cfg, dtype, device)}
-
-    return {
-        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
-                            device),
-        "enc_layers": [enc_layer() for _ in range(cfg.n_enc_layers)],
-        "enc_norm": _ones(cfg, dtype, device),
-        "dec_layers": [dec_layer() for _ in range(cfg.n_layers)],
-        "final_norm": _ones(cfg, dtype, device),
-        "lm_head": dense_init(generator, cfg.d_model, (cfg.vocab_size,),
-                              dtype, device),
-    }
+    return assemble(init_encdec_parts(generator, cfg, device))
 
 
 def encode(params, frames, cfg: ModelConfig):
     """frames [B, Se, D] (the stub frontend's output) -> encoder states."""
     h = frames.to(cdtype(cfg))
     h = h + sinusoid_pos(h.shape[1], cfg.d_model, h.dtype, h.device)
+    h = ax.shard(h, ax.BATCH, None, None)
     for lp in params["enc_layers"]:
+        lp = ax.fsdp_gather(lp)
         x = ops.rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
         h = h + attn.attend_train(lp["attn"], x, cfg, is_causal=False)
         x = ops.rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
@@ -101,11 +106,13 @@ def encode(params, frames, cfg: ModelConfig):
 
 def _embed(params, tokens, cfg: ModelConfig):
     S = tokens.shape[1]
-    h = params["embed"][tokens]
-    return h + sinusoid_pos(S, cfg.d_model, h.dtype, h.device)
+    h = ax.lookup(params["embed"], tokens)
+    h = h + sinusoid_pos(S, cfg.d_model, h.dtype, h.device)
+    return ax.shard(h, ax.BATCH, None, None)
 
 
 def _dec_layer_train(h, lp, enc_out, cfg: ModelConfig):
+    lp = ax.fsdp_gather(lp)
     x = ops.rmsnorm(h, lp["self_norm"], cfg.norm_eps)
     h = h + attn.attend_train(lp["self_attn"], x, cfg, is_causal=True)
     x = ops.rmsnorm(h, lp["cross_norm"], cfg.norm_eps)
@@ -129,7 +136,8 @@ def forward_train(params, frames, tokens, cfg: ModelConfig):
         h = checkpoint(_dec_layer_train, h, lp, enc_out, cfg,
                        use_reentrant=False)
     h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return h @ params["lm_head"]
+    return ax.shard(h @ ax.fsdp_gather(params["lm_head"]), ax.BATCH, None,
+                    ax.TP)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):

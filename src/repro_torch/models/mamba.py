@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init
+from repro_torch.parallel import axes as ax
 
 #: Leaves the JAX init keeps in float32 whatever the model's dtype.
 FP32_PARAMS = ("A_log", "D", "dt_bias")
@@ -83,6 +84,7 @@ def mamba_forward(p, u, cfg: ModelConfig, state: MambaState | None = None):
     x = xBC[..., :d_in].reshape(B, S, H, P)
     Bm = xBC[..., d_in:d_in + N]
     Cm = xBC[..., d_in + N:]
+    x = ax.shard(x, ax.BATCH, None, ax.TP, None)
 
     A = -torch.exp(p["A_log"])
     dt_s = F.softplus(dt.float() + p["dt_bias"])

@@ -7,6 +7,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
+from repro_torch.parallel import axes as ax
 
 
 def init_mlp(generator, cfg: ModelConfig, dtype, device) -> dict:
@@ -19,4 +20,5 @@ def init_mlp(generator, cfg: ModelConfig, dtype, device) -> dict:
 
 
 def mlp(p, x, cfg: ModelConfig):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return ax.shard(h, ax.BATCH, None, ax.TP) @ p["w_down"]

@@ -1,8 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing into per-expert capacity buffers.
 
-Port of ``repro.models.moe``, the single-device path (``moe_ep``, the
-expert-parallel layout of the buffers, comes with the parallel layouts).
-Groups are batch rows: each row's (token, choice) pairs are stably sorted by
+Port of ``repro.models.moe``.  Groups are batch rows: each row's (token, choice) pairs are stably sorted by
 expert, the first ``capacity`` pairs of each expert go into an
 [B, E, C, D] buffer and the rest are dropped (their residual passes
 through), the experts run as batched products over E (``torch.einsum``,
@@ -14,6 +12,14 @@ Every shape depends only on the config and the input's shape, never on the
 routing: no boolean indexing, no ``nonzero``.  So the recompute of
 ``torch.utils.checkpoint`` sees the metadata of the first pass, and the
 path can be captured in a CUDA graph.
+
+On a mesh (DTensors) the routing, dispatch and combine run on each rank's
+own rows (a group never spans ranks), and the expert products on
+DTensors, annotated as the reference annotates them: with ``cfg.moe_ep``
+the buffer's expert axis is sharded over ``model`` (the buffer goes
+``Replicate`` -> ``Shard(E)`` for the products -> ``Replicate`` for the
+combine, where XLA uses all-to-alls), else each expert's hidden dimension
+is (TP within the expert).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
+from repro_torch.parallel import axes as ax
 
 #: Leaves the JAX init keeps in float32 whatever the config's dtype.
 FP32_PARAMS = ("router",)
@@ -106,29 +113,38 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig):
     B, S, D = x.shape
     E, C = cfg.n_experts, capacity(cfg, S)
     logits = x.float() @ p["router"]
-    r = route(logits, cfg)
+    # This rank's rows (all of them off a mesh).
+    xl = ax.local(x)
+    r = route(ax.local(ax.shard(logits, ax.BATCH, None, None)), cfg)
+    b = xl.shape[0]
 
     def rows(t: torch.Tensor) -> torch.Tensor:          # [B, T] -> [B, T, D]
         return t[..., None].expand(-1, -1, D)
 
-    x_src = x.gather(1, rows(r.tok))
+    x_src = xl.gather(1, rows(r.tok))
     # Kept pairs have distinct rows; dropped ones all land on the extra
     # row E*C, which is cut off.
-    buf = x.new_zeros(B, E * C + 1, D).scatter(1, rows(r.dest), x_src)
-    buf = buf[:, :E * C].reshape(B, E, C, D)
+    buf = xl.new_zeros(b, E * C + 1, D).scatter(1, rows(r.dest), x_src)
+    buf = ax.like(buf[:, :E * C].reshape(b, E, C, D), x)
+    spec_e = ax.EP if cfg.moe_ep else None
+    buf = ax.shard(buf, ax.BATCH, spec_e, None, None)
     w_gate, w_up, w_down = (p[n].to(x.dtype) for n in ("w_gate", "w_up",
                                                        "w_down"))
     h = (F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
          * torch.einsum("becd,edf->becf", buf, w_up))
-    out = torch.einsum("becf,efd->becd", h, w_down).reshape(B, E * C, D)
-    out = F.pad(out, (0, 0, 0, 1))                      # the drop row: 0
+    if not cfg.moe_ep:
+        h = ax.shard(h, ax.BATCH, None, None, ax.TP)
+    out = torch.einsum("becf,efd->becd", h, w_down)
+    out = ax.shard(out, ax.BATCH, spec_e, None, None)
+    out = ax.local(ax.shard(out, ax.BATCH, None, None, None))
+    out = F.pad(out.reshape(b, E * C, D), (0, 0, 0, 1))  # the drop row: 0
     w = (r.prob * r.keep).to(x.dtype)[..., None]
     # Each token receives k <= 2 terms into a zeroed row, and a + b == b + a
     # in floating point, so the card's atomic adds give the same sum in any
     # order: the result is deterministic.
-    y = x.new_zeros(B, S, D).scatter_add(1, rows(r.tok),
-                                         out.gather(1, rows(r.dest)) * w)
-    return y, logits
+    y = xl.new_zeros(b, S, D).scatter_add(1, rows(r.tok),
+                                          out.gather(1, rows(r.dest)) * w)
+    return ax.like(y, x), logits
 
 
 def moe_ffn_dense_reference(p, x: torch.Tensor, cfg: ModelConfig):
@@ -148,7 +164,11 @@ def moe_ffn_dense_reference(p, x: torch.Tensor, cfg: ModelConfig):
 
 def load_balancing_loss(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Switch/GShard auxiliary loss ``E * sum_e f_e * p_e``: f the share of
-    tokens whose top-1 expert is e, p the mean router probability of e."""
+    tokens whose top-1 expert is e, p the mean router probability of e.  On
+    a mesh every rank computes it from all the rows' logits (gathered)."""
+    if ax.is_dtensor(logits):
+        return ax.like_replicated(load_balancing_loss(ax.full(logits), cfg),
+                                  logits)
     E = cfg.n_experts
     probs = torch.softmax(logits, dim=-1)                     # [B, S, E]
     f = F.one_hot(logits.argmax(-1), E).float().mean((0, 1))

@@ -4,6 +4,8 @@ Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
 ``Model`` with:
 
   init(seed)                       -> params, drawn on the device
+  init_parts(seed)                 -> init's (key, value) entries in draw
+                                      order, a unit (layer) at a time
   loss(params, batch)              -> (loss, {'ce', 'aux'}), differentiable
   prefill(params, batch, max_seq)  -> (logits, cache)
   decode(params, token, cache)     -> (logits, cache)
@@ -40,6 +42,7 @@ class Model:
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
     decays: Callable[[tuple, torch.Tensor], bool]   # AdamW's decay rule
+    init_parts: Callable[..., Any]
 
 
 def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
@@ -68,8 +71,13 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
                 f"{cfg.name}: the encoder-decoder's decode cache holds the "
                 f"encoder's K/V, so it comes from prefill")
 
+        def parts_encdec(seed: int):
+            return encdec.init_encdec_parts(generator().manual_seed(seed),
+                                            cfg, device)
+
         return Model(cfg, init_encdec, loss_encdec, prefill_encdec,
-                     decode_encdec, no_cache, transformer.decayed)
+                     decode_encdec, no_cache, transformer.decayed,
+                     parts_encdec)
 
     def init(seed: int):
         return transformer.init_lm(generator().manual_seed(seed), cfg, device)
@@ -87,5 +95,9 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
     def init_cache(batch: int, max_seq: int):
         return transformer.init_decode_cache(cfg, batch, max_seq, device)
 
+    def init_parts(seed: int):
+        return transformer.init_lm_parts(generator().manual_seed(seed), cfg,
+                                         device)
+
     return Model(cfg, init, loss, prefill_fn, decode_fn, init_cache,
-                 transformer.decayed)
+                 transformer.decayed, init_parts)

@@ -17,6 +17,12 @@ scans too) and the train loss through ``ops.fused_cross_entropy``
 (Triton); on the card the train path's gradients come from their backward
 kernels.  The MoE FFN (``moe.moe_ffn``) and the Mamba mixer's conv, gates
 and skip are plain torch, as the JAX package computes them.
+
+On a mesh (DTensor parameters, ``parallel.sharding``) the train path
+carries the reference's activation annotations (``axes.shard``: a no-op on
+plain tensors), each unit gathers its weights over the FSDP axes at its
+entry (``axes.fsdp_gather``), and the embedding lookup runs on each rank's
+own tokens (``axes.lookup``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from repro_torch.models import mamba as mb
 from repro_torch.models.common import cdtype, dense_init, embed_init
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, load_balancing_loss, moe_ffn
+from repro_torch.parallel import axes as ax
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -85,27 +92,43 @@ def _init_unit(generator, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
-def init_lm(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
-    """Random weights drawn on ``device`` from ``generator`` (a generator on
-    that device), with the JAX module's distributions."""
+def init_lm_parts(generator: torch.Generator, cfg: ModelConfig, device):
+    """``init_lm``'s entries as ``(key, value)`` in the order it draws
+    them, the units one at a time (``("units", unit)``)."""
     dtype = cdtype(cfg)
-    params = {
-        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
-                            device),
-        "units": [_init_unit(generator, cfg, dtype, device)
-                  for _ in range(n_units(cfg))],
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-    }
+    yield "embed", embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
+                              device)
+    for _ in range(n_units(cfg)):
+        yield "units", _init_unit(generator, cfg, dtype, device)
+    yield "final_norm", torch.ones((cfg.d_model,), dtype=dtype,
+                                   device=device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, cfg.d_model,
-                                       (cfg.vocab_size,), dtype, device)
-    return params
+        yield "lm_head", dense_init(generator, cfg.d_model,
+                                    (cfg.vocab_size,), dtype, device)
 
 
 #: Top-level subtrees that the JAX tree stacks over layers (``vmap``ped
 #: inits), and the port keeps as lists of per-layer dicts: the units, and
 #: the encoder-decoder's layers.
 STACKED = ("units", "enc_layers", "dec_layers")
+
+
+def assemble(parts) -> dict:
+    """A parameter tree from ``(key, value)`` parts, the values of a
+    ``STACKED`` key collected into its list."""
+    params: dict = {}
+    for key, value in parts:
+        if key in STACKED:
+            params.setdefault(key, []).append(value)
+        else:
+            params[key] = value
+    return params
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """Random weights drawn on ``device`` from ``generator`` (a generator on
+    that device), with the JAX module's distributions."""
+    return assemble(init_lm_parts(generator, cfg, device))
 
 
 def decayed(path: tuple, p: torch.Tensor) -> bool:
@@ -120,15 +143,15 @@ def decayed(path: tuple, p: torch.Tensor) -> bool:
 def embed_tokens(params, tokens, cfg: ModelConfig, prefix=None):
     """Token embeddings [B, S, D], after the prefix embeddings [B, P, D]
     (cast to the model's dtype) where there are any."""
-    h = params["embed"][tokens]
+    h = ax.lookup(params["embed"], tokens)
     if prefix is not None:
         h = torch.cat([prefix.to(h.dtype), h], dim=1)
-    return h
+    return ax.shard(h, ax.BATCH, None, None)
 
 
 def lm_head(params, h, cfg: ModelConfig):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    return ax.shard(h @ ax.fsdp_gather(w), ax.BATCH, None, ax.TP)
 
 
 # ----------------------------------------------------------------- training
@@ -141,7 +164,9 @@ def _ffn(sp, x, sub, cfg: ModelConfig):
 
 
 def _apply_unit_train(h, up, cfg: ModelConfig):
-    """-> (h, aux): aux sums each MoE sub-layer's load-balancing loss."""
+    """-> (h, aux): aux sums each MoE sub-layer's load-balancing loss.  On
+    a mesh the unit's weights are gathered over the FSDP axes first."""
+    up = ax.fsdp_gather(up)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, sub in enumerate(unit_layout(cfg)):
         sp = up[f"sub{j}"]
@@ -156,6 +181,7 @@ def _apply_unit_train(h, up, cfg: ModelConfig):
             if router_logits is not None:
                 aux = aux + load_balancing_loss(router_logits, cfg)
             h = h + y
+        h = ax.shard(h, ax.BATCH, None, None)
     return h, aux
 
 

@@ -1182,3 +1182,407 @@ def test_cuda_dp_step_on_every_card_matches_one_card(cuda, tmp_path):
             assert torch.equal(a, b)
     for got, want in zip(outs[0]["params"], leaves(state.params)):
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
+
+
+# ------------------------------------------- the parallel layouts (DTensor)
+
+def _world1_mesh(tmp_path):
+    """A (data=1, model=1) NCCL mesh over this process alone."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+    return make_test_mesh(1, 1, device_type="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_layouts_at_world_one(cuda, tmp_path):
+    """One card as a (1, 1) mesh: ``placements`` and ``distribute_state``
+    give each leaf its spec's placements and the one-card init bit for
+    bit; ``shard`` redistributes a DTensor and leaves a plain tensor; one
+    ``make_sharded_step`` (float32 qwen2 smoke, kernels on the local
+    shards) equals the plain step bit for bit, with the same kernel
+    launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.parallel import axes as ax
+    from repro_torch.parallel.sharding import (param_specs, placements,
+                                               sanitize)
+    from repro_torch.tree import leaves
+
+    mesh = _world1_mesh(tmp_path)
+    try:
+        assert placements(ax.P("data", "model"), mesh) == (Shard(0),
+                                                           Shard(1))
+        x = torch.ones(4, 8, device=cuda)
+        assert ax.shard(x, ax.BATCH, ax.TP) is x
+        d = DTensor.from_local(x, mesh, (Replicate(), Replicate()))
+        with ax.logical_mesh(mesh):
+            got = ax.shard(d, ax.BATCH, ax.TP)
+        assert got.placements == (Shard(0), Shard(1))
+        assert torch.equal(got.full_tensor(), x)
+
+        cfg = get_config("qwen2-7b-smoke")
+        kw = dict(steps=60, batch=4, seq=64, seed=0, device=cuda)
+        plain = train.setup(cfg, **kw)
+        sharded = train.setup(cfg, mesh=mesh, **kw)
+        s0, s1 = plain.init(), sharded.init()
+        specs = leaves(param_specs(s0.params))
+        assert len(specs) == len(leaves(s0.params))
+        for p, q, spec in zip(leaves(s0.params), leaves(s1.params), specs):
+            assert q.placements == placements(sanitize(spec, p.shape, mesh),
+                                              mesh)
+            assert torch.equal(q.full_tensor(), p)
+        batch = plain.pipeline.batch_at(0)
+        ops.reset_launch_counts()
+        s0, m0 = plain.train_step(s0, batch)
+        want_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        s1, m1 = sharded.train_step(s1, batch)
+        assert ops.launch_counts() == want_counts
+        assert float(m1["loss"]) == float(m0["loss"])
+        for p, q in zip(leaves(s0.params), leaves(s1.params)):
+            assert torch.equal(q.full_tensor(), p)
+    finally:
+        dist.destroy_process_group()
+
+
+LAYOUT_MESH = (2, 2)
+LAYOUT_TIMEOUT_S = 480
+
+
+def _spawn_cards(fn, tmp_path, *args) -> None:
+    import time
+
+    import torch.multiprocessing as mp
+
+    world = LAYOUT_MESH[0] * LAYOUT_MESH[1]
+    ctx = mp.start_processes(fn, args=(world, str(tmp_path)) + args,
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + LAYOUT_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail(f"ranks still running after {LAYOUT_TIMEOUT_S} s")
+
+
+def _card_mesh(rank: int, world: int, tmp: str, dims=LAYOUT_MESH,
+               names=("data", "model")):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=world, rank=rank)
+    return init_device_mesh("cuda", dims, mesh_dim_names=names)
+
+
+def _qwen2(layers: int, dtype: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2-7b"), n_layers=layers,
+                               dtype=dtype)
+
+
+LAYOUT_F32 = dict(layers=2, batch=2, seq=1024)
+
+
+def _layout_f32_rank(rank: int, world: int, tmp: str) -> None:
+    """(a): loss and every gathered gradient of the sharded step on a
+    (2, 2) mesh; rank 0 then computes the one-card step on its card and
+    saves the worst errors."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    from repro_torch.parallel import axes as ax
+    from repro_torch.parallel.sharding import distribute_batch
+    from repro_torch.tree import leaves_with_path
+
+    mesh = _card_mesh(rank, world, tmp)
+    try:
+        cfg = _qwen2(LAYOUT_F32["layers"], "float32")
+        kw = dict(steps=60, batch=LAYOUT_F32["batch"],
+                  seq=LAYOUT_F32["seq"], seed=0)
+        t = train.setup(cfg, mesh=mesh, device=f"cuda:{rank}", **kw)
+        state = t.init()
+        batch = t.pipeline.batch_at(0)
+        flat = [p for _, p in leaves_with_path(state.params)]
+        for p in flat:
+            p.requires_grad_(True)
+        with train.sharding_rules(mesh):
+            loss, _ = t.model.loss(state.params,
+                                   distribute_batch(batch, mesh))
+            loss = ax.full(loss)
+            grads = torch.autograd.grad(loss, flat)
+        got = [g.full_tensor().cpu() for g in grads]
+        got_loss = float(loss.detach())
+        del state, grads, flat, loss
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            one = train.setup(cfg, device="cuda:0", **kw)
+            s = one.init()
+            paths = [path for path, _ in leaves_with_path(s.params)]
+            params = [p.requires_grad_(True) for _, p in
+                      leaves_with_path(s.params)]
+            want_loss, _ = one.model.loss(s.params, {
+                k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+            want = torch.autograd.grad(want_loss, params)
+            worst = []
+            for path, g, w in zip(paths, got, want):
+                w = w.float().cpu()
+                worst.append((float((g - w).abs().max())
+                               / max(float(w.abs().max()), 1e-30),
+                               str(path)))
+            torch.save({"loss": got_loss, "want_loss": float(want_loss),
+                        "worst": sorted(worst, reverse=True)},
+                       f"{tmp}/out.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_layouts_qwen2_f32_on_four_cards_match_one_card(cuda,
+                                                               tmp_path):
+    """(a) qwen2-7b at full width in float32, 2 layers, 2 x 1024, on a
+    (data=2, model=2) NCCL mesh: the loss within 1e-4 relative, and every
+    gathered gradient leaf within 1e-4 of its largest entry, of the same
+    step on one card."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _spawn_cards(_layout_f32_rank, tmp_path)
+    out = torch.load(tmp_path / "out.pt")
+    print(f"loss {out['loss']!r} one card {out['want_loss']!r}; worst "
+          f"gradient leaves {out['worst'][:3]}")
+    assert out["loss"] == pytest.approx(out["want_loss"], rel=1e-4)
+    assert out["worst"][0][0] <= 1e-4, out["worst"][:3]
+
+
+LAYOUT_BF16 = dict(layers=28, batch=2, seq=4096, steps=3)
+LAYOUT_SAMPLE = ("embed", "final_norm", "lm_head")
+
+
+def _vocab_gather_ms(mesh, cfg, tokens: int) -> float:
+    """CUDA-event ms of the cross-entropy's vocab gather at the train
+    shape: a rank's rows of the logits, [tokens / data, V] bf16, from
+    ``Shard(1)`` on ``model`` to ``Replicate`` (the mean of 10 after 3)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    data, model = mesh.shape
+    local = torch.randn(tokens // data, cfg.vocab_size // model,
+                        device="cuda", dtype=torch.bfloat16)
+    x = DTensor.from_local(local, mesh, (Shard(0), Shard(1)),
+                           run_check=False)
+    for _ in range(3):
+        x.redistribute(mesh, (Shard(0), Replicate()))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(10):
+        x.redistribute(mesh, (Shard(0), Replicate()))
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 10
+
+
+def _layout_bf16_rank(rank: int, world: int, tmp: str) -> None:
+    """(b): qwen2-7b at full depth, three sharded steps; the losses, step
+    times and peak memory, every replicated leaf, and a sample of leaves
+    gathered from the sharded init."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves_with_path
+
+    mesh = _card_mesh(rank, world, tmp)
+    try:
+        cfg = _qwen2(LAYOUT_BF16["layers"], "bfloat16")
+        t = train.setup(cfg, mesh=mesh, device=f"cuda:{rank}",
+                        steps=LAYOUT_BF16["steps"] + 2,
+                        batch=LAYOUT_BF16["batch"], seq=LAYOUT_BF16["seq"],
+                        seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = t.init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        sample = {}
+        for path, p in leaves_with_path(state.params):
+            if path[0] in LAYOUT_SAMPLE or path[:2] == (
+                    "units", LAYOUT_BF16["layers"] - 1):
+                full = p.full_tensor()
+                if rank == 0:
+                    sample[str(path)] = full.cpu()
+                del full
+        state_bytes = sum(p._local_tensor.numel() * p._local_tensor
+                          .element_size() for _, p in
+                          leaves_with_path((state.params, state.opt.m,
+                                            state.opt.v)))
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for i in range(LAYOUT_BF16["steps"]):
+            t0 = time.perf_counter()
+            state, m = t.train_step(state, t.pipeline.batch_at(i))
+            losses.append(float(m["loss"]))
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        gather_ms = _vocab_gather_ms(mesh, cfg, LAYOUT_BF16["batch"]
+                                     * LAYOUT_BF16["seq"])
+        torch.save({"losses": losses, "step_ms": step_ms, "peak": peak,
+                    "vocab_gather_ms": gather_ms,
+                    "init_peak": init_peak, "init_s": init_s,
+                    "state_bytes": state_bytes, "sample": sample,
+                    "replicated": {k: p._local_tensor.cpu() for k, p in
+                                   ((str(path), p) for path, p in
+                                    leaves_with_path(state.params))
+                                   if all(pl.is_replicate()
+                                          for pl in p.placements)}},
+                   f"{tmp}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_layouts_qwen2_full_depth_on_four_cards(cuda, tmp_path):
+    """(b) qwen2-7b at full width and depth (28 layers), bf16, 2 x 4096, on
+    a (2, 2) NCCL mesh, three steps: finite losses; every replicated leaf
+    bit-equal across the ranks; the embedding, final norm, LM head and the
+    last unit gathered from the sharded init equal to the one-card init,
+    bit for bit (drawn here a part at a time from the same seed).  Prints
+    the per-card peak memory and ms/step."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch.models import get_model
+    from repro_torch.tree import leaves_with_path
+
+    _spawn_cards(_layout_bf16_rank, tmp_path)
+    outs = [torch.load(tmp_path / f"rank{r}.pt") for r in range(4)]
+    for r, out in enumerate(outs):
+        print(f"rank {r}: vocab gather {out['vocab_gather_ms']:.3f} ms; "
+              f"losses {out['losses']}, ms/step "
+              f"{[round(x, 1) for x in out['step_ms']]}, peak "
+              f"{out['peak'] / 1e9:.2f} GB (init {out['init_peak'] / 1e9:.2f}"
+              f" GB, {out['init_s']:.1f} s), state "
+              f"{out['state_bytes'] / 1e9:.2f} GB")
+        assert all(np.isfinite(out["losses"]))
+        assert out["losses"] == outs[0]["losses"]
+        assert sorted(out["replicated"]) == sorted(outs[0]["replicated"])
+        for k, v in out["replicated"].items():
+            assert torch.equal(v, outs[0]["replicated"][k]), (r, k)
+    model = get_model(_qwen2(LAYOUT_BF16["layers"], "bfloat16"),
+                      device=cuda)
+    want, unit = {}, -1
+    for key, value in model.init_parts(0):
+        if key == "units":
+            unit += 1
+            if unit != LAYOUT_BF16["layers"] - 1:
+                continue
+            prefix = ("units", unit)
+        else:
+            prefix = (key,)
+        for path, leaf in leaves_with_path(value):
+            want[str(prefix + path)] = leaf.cpu()
+    sample = outs[0]["sample"]
+    assert sample and set(sample) <= set(want)
+    for k, v in sample.items():
+        assert torch.equal(v, want[k]), k
+
+
+PIPE_STAGES, PIPE_UNITS, PIPE_MICRO = 4, 28, 4
+PIPE_BATCH, PIPE_SEQ = 4, 512
+
+
+def _pipe_stage_fn(cfg):
+    from repro_torch.models import transformer
+
+    def stage(units, h):
+        for up in units:
+            h = transformer._apply_unit_train(h, up, cfg)[0]
+        return h
+    return stage
+
+
+def _pipeline_rank(rank: int, world: int, tmp: str) -> None:
+    """(c): qwen2-7b's 28 units, 7 a stage, through ``make_pipelined_fn``;
+    each rank holds only its stage's units.  Rank 0 also runs the one-card
+    forward and saves both logits' difference."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import get_model, transformer
+    from repro_torch.parallel.pipeline import make_pipelined_fn
+
+    mesh = _card_mesh(rank, world, tmp, dims=(PIPE_STAGES,),
+                      names=("stage",))
+    try:
+        cfg = _qwen2(PIPE_UNITS, "bfloat16")
+        model = get_model(cfg, device=f"cuda:{rank}")
+        per = PIPE_UNITS // PIPE_STAGES
+        params, units, i = {}, [], 0
+        for key, value in model.init_parts(0):
+            if key == "units":
+                if rank * per <= i < (rank + 1) * per or rank == 0:
+                    units.append((i, value))
+                i += 1
+            else:
+                params[key] = value
+        mine = [u for j, u in units if rank * per <= j < (rank + 1) * per]
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ))).cuda()
+        stage = _pipe_stage_fn(cfg)
+        with torch.no_grad():
+            h = transformer.embed_tokens(params, tokens, cfg)
+            x = h.reshape(PIPE_MICRO, PIPE_BATCH // PIPE_MICRO, *h.shape[1:])
+            kops.reset_launch_counts()
+            out = make_pipelined_fn(stage, mesh, stacked=False)(mine, x)
+            counts = kops.launch_counts()
+            h = out.reshape(h.shape)
+            logits = transformer.lm_head(
+                params, kops.rmsnorm(h, params["final_norm"], cfg.norm_eps),
+                cfg)
+            if rank == 0:
+                ref = stage([u for _, u in units],
+                            transformer.embed_tokens(params, tokens, cfg))
+                want = transformer.lm_head(
+                    params, kops.rmsnorm(ref, params["final_norm"],
+                                         cfg.norm_eps), cfg)
+                err = float((logits.float() - want.float()).abs().max())
+                torch.save({"err": err,
+                            "scale": float(want.float().abs().max()),
+                            "finite": bool(torch.isfinite(logits).all()),
+                            "counts": counts}, f"{tmp}/out.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_qwen2_on_four_cards_matches_one_card(cuda, tmp_path):
+    """(c) ``make_pipelined_fn`` over four cards with qwen2-7b's 28 units,
+    7 a stage, as ``stage_fn``: bf16 logits of a 4 x 512 batch in 4
+    microbatches within 2e-2 of the largest |logit| of the one-card forward
+    of the same units; each stage launches the flash kernel once per
+    attention layer and microbatch (bubble ticks compute nothing)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _spawn_cards(_pipeline_rank, tmp_path)
+    out = torch.load(tmp_path / "out.pt")
+    print(f"pipeline vs one card: max |diff| {out['err']!r} of largest "
+          f"|logit| {out['scale']!r}; stage 0 launches {out['counts']}")
+    assert out["finite"]
+    assert out["err"] <= 2e-2 * out["scale"]
+    assert out["counts"]["flash_attention"] == \
+        PIPE_MICRO * PIPE_UNITS // PIPE_STAGES
