@@ -119,12 +119,26 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 leaf named and held within 2e-2), its kernel launches equal
                 to the plain step's, then two timed steps beside phase 6's
                 plain ms/step;
-10. the ``{"serve": ...}``, ``{"train": ...}``, ``{"grad": ...}``,
-   ``{"kernels": [...]}``, ``{"engine": [...]}`` and ``{"layouts": ...}``
-   summary lines, then the ``{"ok": true, ...}`` line.
+10. serve layouts -- qwen2-7b at full width and depth (28 layers, bf16,
+                batch 4, prompt 512, 32 tokens) through
+                ``launch.serve.generate`` on a (data=1, model=1) NCCL mesh:
+                the parameters drawn from the seed a part at a time and
+                laid out by ``param_specs`` (``init_params``), the caches
+                in ``cache_specs``' placements, the kernels on the local
+                shards; the greedy tokens equal to phase 5's, the last
+                logits bit-equal to phase 5's (or every differing entry
+                named and held within 2e-2), the kernel launches equal to
+                phase 5's, prefill ms and decode ms/step beside phase 5's;
+                then the same prefill and decode dry-run on a fake world of
+                one rank (``launch.dryrun``), their H100 roofline bound
+                beside the measured times;
+11. the ``{"serve": ...}``, ``{"train": ...}``, ``{"grad": ...}``,
+   ``{"kernels": [...]}``, ``{"engine": [...]}``, ``{"layouts": ...}`` and
+   ``{"serve_layouts": ...}`` summary lines, then the ``{"ok": true, ...}``
+   line.
 
-Each run of a main path (phases 5, 6, 7 and 9) zeroes the kernels' launch
-counts just before it and reads them just after.
+Each run of a main path (phases 5, 6, 7, 9 and 10) zeroes the kernels'
+launch counts just before it and reads them just after.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Weights are random, drawn on the card from a fixed seed.
@@ -330,7 +344,7 @@ def phase_device() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    print("[1/10] device")
+    print("[1/11] device")
     print(smi)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
@@ -431,7 +445,7 @@ def phase_build() -> dict[str, dict]:
     from repro_torch.kernels import fused_ce as ce
     from repro_torch.kernels import rmsnorm as rn
 
-    print("[2/10] build")
+    print("[2/11] build")
     t0 = time.perf_counter()
     build.build()
     t_nvcc = time.perf_counter() - t0
@@ -1516,7 +1530,7 @@ def _family_rows(entries: list[dict]) -> None:
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     from repro_torch.configs import get_config
 
-    print("[3/10] kernels against their plain versions")
+    print("[3/11] kernels against their plain versions")
     fwd = _flash_entry(cfg)
     bwd = _flash_bwd_entry(cfg, fwd)
     fwd["build_hd128"] = {"flash_fwd_bf16_kernel":
@@ -1791,7 +1805,7 @@ def phase_reference() -> None:
     from repro_torch.models import get_model
     from repro_torch.tree import tree_map
 
-    print("[4/10] reference: float32 models on the card vs the CPU")
+    print("[4/11] reference: float32 models on the card vs the CPU")
     for arch, overrides, S, frames in REFERENCE_MODELS:
         cfg = get_config(arch).smoke(**overrides)
         cpu, gpu = get_model(cfg, device="cpu"), get_model(cfg, device="cuda")
@@ -1841,7 +1855,7 @@ def phase_serve(arch: str, batch: int, prompt: int, layers: int,
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
-    print(f"[5/10] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+    print(f"[5/11] serve {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
           + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
              if frames else "")
           + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
@@ -1904,6 +1918,8 @@ def phase_serve(arch: str, batch: int, prompt: int, layers: int,
     if not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
         fail("token ids out of range")
     print(f"  tokens[0, :8] = {seq[0, :8].tolist()}")
+    # Held by phase 10 against the same model served on a mesh; not printed.
+    stats["_out"] = {"tokens": seq.cpu(), "logits": r["logits"].cpu()}
 
     stats["traced"] = profile_serve.profile_generate(model, params, inputs,
                                                      PROFILE_DECODE_STEPS)
@@ -1986,7 +2002,7 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
     # Positions each step runs through the decoder: the text tokens and a
     # VLM's prefix rows.
     tokens = batch * (seq + cfg.n_prefix_tokens)
-    print(f"[6/10] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+    print(f"[6/11] train {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
           + (f" (+ {cfg.n_enc_layers} encoder layers, {frames} frames)"
              if frames else "")
           + (f" (+ {cfg.n_prefix_tokens} prefix rows)"
@@ -2391,7 +2407,7 @@ def phase_grad(plain: dict) -> dict:
 
     full = get_config(GRAD_ARCH)
     cfg = dataclasses.replace(full, n_layers=GRAD_LAYERS)
-    print(f"[7/10] gradient path {cfg.name}: {cfg.n_layers} of "
+    print(f"[7/11] gradient path {cfg.name}: {cfg.n_layers} of "
           f"{full.n_layers} layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
           f"--compress (int8 error feedback) and the MSA-ordered DP step")
     rates = _hw_rates()
@@ -2454,7 +2470,7 @@ def phase_layouts(plain: dict) -> dict:
 
     full = get_config(LAYOUT_ARCH)
     cfg = dataclasses.replace(full, n_layers=LAYOUT_LAYERS)
-    print(f"[9/10] layouts: {cfg.name} {cfg.n_layers} of {full.n_layers} "
+    print(f"[9/11] layouts: {cfg.name} {cfg.n_layers} of {full.n_layers} "
           f"layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, FSDP x TP on a "
           f"(data=1, model=1) NCCL mesh")
     per_card = {pod: _state_bytes_per_card(pod) for pod in (False, True)}
@@ -2607,7 +2623,7 @@ def phase_engine() -> list[dict]:
 
     cases = [(name, SCENARIO_TOPOLOGY.get(name, "big_switch"))
              for name in sorted(SCENARIOS)] + list(ENGINE_EXTRA)
-    print(f"[8/10] engine: fifo lockstep batches of {ENGINE_SEEDS} seeds at "
+    print(f"[8/11] engine: fifo lockstep batches of {ENGINE_SEEDS} seeds at "
           f"full size, card vs CPU (float64)")
     rows, cpu_lanes, packed = [], {}, {}
     for scenario, topology in cases:
@@ -2669,6 +2685,133 @@ def phase_engine() -> list[dict]:
     return rows
 
 
+# Serving under the layouts (phase 10): phase 5's qwen2-7b cell (full width
+# and depth, bf16, batch 4, prompt 512, 32 tokens) through
+# ``launch.serve.generate`` on a (data=1, model=1) NCCL mesh.  At world 1
+# every collective is the identity and every local tensor the whole one, so
+# the tokens and the last logits are held to phase 5's bit for bit (or each
+# differing entry named and held within 2e-2, as phase 9 holds its leaves),
+# the kernel launches to phase 5's.  The dry run of the same prefill and
+# decode on a fake world of one rank gives their H100 roofline bound.
+LAYOUT_SERVE_TOL = 2e-2
+
+
+def _serve_dry_run(cfg, batch: int, context: int) -> dict:
+    """``launch.dryrun`` of the cell's prefill and one decode step against
+    a cache of ``context`` rows, on a fake world of one rank: per-device
+    FLOPs, collective and argument bytes, and the H100 roofline bound."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.roofline.analysis import (RooflineTerms,
+                                               total_collective_bytes)
+
+    out = {}
+    for shape in (ShapeConfig("serve_prefill", PROMPT, batch, "prefill"),
+                  ShapeConfig("serve_decode", context, batch, "decode")):
+        got = dryrun.run(cfg, shape, MeshShape(("data", "model"), (1, 1)))
+        terms = RooflineTerms(
+            flops=got["flops"], hbm_bytes=got["argument_bytes"]
+            + got["output_bytes"],
+            coll_bytes=total_collective_bytes(got["collective"]), chips=1)
+        out[shape.kind] = {"flops": got["flops"],
+                           "argument_bytes": got["argument_bytes"],
+                           "output_bytes": got["output_bytes"],
+                           "collective_bytes": got["collective"],
+                           "bound_ms": terms.bound_s * 1e3,
+                           "dominant": terms.dominant,
+                           "dry_run_s": got["run_s"]}
+    return out
+
+
+def phase_serve_layouts(plain: dict) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import init_params
+
+    arch, batch, prompt, layers, _ = SERVES[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    print(f"[10/11] serve layouts: {cfg.name} {cfg.n_layers} layers, "
+          f"{cfg.dtype}, batch {batch}, prompt {prompt}, gen {GEN}, "
+          f"param_specs on a (data=1, model=1) NCCL mesh")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+        try:
+            mesh = make_test_mesh(1, 1, device_type="cuda")
+            model = get_model(cfg, device="cuda")
+            t0 = time.perf_counter()
+            params = init_params(model, SEED, mesh)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            inputs = serve.prompt_batch(cfg, batch, prompt, SEED, "cuda")
+            serve.generate(model, params, inputs, 2)     # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            r = serve.generate(model, params, inputs, GEN)
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    steps = r["decode_steps"]
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
+             "prompt": prompt, "init_s": init_s,
+             "prefill_ms": r["prefill_s"] * 1e3,
+             "decode_ms_per_step": r["decode_s"] * 1e3 / steps,
+             "plain_prefill_ms": plain["prefill_ms"],
+             "plain_decode_ms_per_step": plain["decode_ms_per_step"],
+             "peak_mem_gb": peak / 1e9, "plain_peak_mem_gb":
+             plain["peak_mem_gb"], "launches": counts}
+    print(f"  init from the seed {init_s:.2f} s; prefill "
+          f"{stats['prefill_ms']:.2f} ms (phase 5: {plain['prefill_ms']:.2f}),"
+          f" decode {stats['decode_ms_per_step']:.3f} ms/step (phase 5: "
+          f"{plain['decode_ms_per_step']:.3f}); peak {peak / 1e9:.2f} GB "
+          f"(phase 5: {plain['peak_mem_gb']:.2f}); launches {counts}")
+    if counts != plain["launches"]:
+        fail(f"serving on a mesh launched {counts}, phase 5 "
+             f"{plain['launches']}")
+    if not bool(r["finite"]):
+        fail("non-finite logits on the mesh")
+    want = plain["_out"]
+    tokens, logits = r["tokens"].cpu(), r["logits"].cpu()
+    if not torch.equal(tokens, want["tokens"]):
+        fail(f"tokens on the mesh {tokens[0, :8].tolist()}, phase 5's "
+             f"{want['tokens'][0, :8].tolist()}")
+    differ = (logits != want["logits"]).nonzero().tolist()
+    scale = float(want["logits"].float().abs().max())
+    worst = float((logits.float() - want["logits"].float()).abs().max())
+    stats.update(tokens_equal=True, logits_bit_equal=not differ,
+                 logits_differ=len(differ), logits_max_diff=worst)
+    if differ:
+        print(f"  logits NOT bit-equal: {len(differ)} entries differ, "
+              f"(row, vocab) {differ[:16]}; max |diff| {worst!r} of max "
+              f"|logit| {scale!r}")
+        if worst > LAYOUT_SERVE_TOL * scale:
+            fail(f"logits on the mesh outside {LAYOUT_SERVE_TOL} of the "
+                 f"largest")
+    else:
+        print(f"  tokens and last logits [{batch}, {cfg.vocab_size}] "
+              f"bit-equal to phase 5's (tolerance 0)")
+    context = serve.context_len(inputs) + GEN
+    stats["dry_run"] = _serve_dry_run(cfg, batch, context)
+    for kind, d in stats["dry_run"].items():
+        measured = (stats["prefill_ms"] if kind == "prefill"
+                    else stats["decode_ms_per_step"])
+        print(f"  dry run ({d['dry_run_s']:.1f} s on fake tensors) {kind}: "
+              f"{d['flops'] / 1e12:.3f} TFLOP of products, "
+              f"{(d['argument_bytes'] + d['output_bytes']) / 1e9:.3f} GB "
+              f"of arguments and outputs; H100 bound {d['bound_ms']:.3f} ms "
+              f"({d['dominant']}) against {measured:.3f} ms measured")
+    return stats
+
+
 def main() -> None:
     phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2691,24 +2834,31 @@ def main() -> None:
     engine = phase_engine()
     torch.cuda.empty_cache()
     layouts = phase_layouts(trains[LAYOUT_ARCH])
+    torch.cuda.empty_cache()
+    serve_layouts = phase_serve_layouts(serves[SERVES[0][0]])
+    for st in serves.values():
+        st.pop("_out")
     paths = {**{f"serve {arch}": st["launches"] for arch, st in serves.items()},
              **{f"train {arch}": st["launches"] for arch, st in trains.items()},
              f"train {GRAD_ARCH} --compress": grad["compress"]["launches"],
              f"train {GRAD_ARCH} DP step": grad["dp"]["launches"],
-             f"train {LAYOUT_ARCH} sharded (1x1 mesh)": layouts["launches"]}
+             f"train {LAYOUT_ARCH} sharded (1x1 mesh)": layouts["launches"],
+             f"serve {SERVES[0][0]} on a 1x1 mesh":
+             serve_layouts["launches"]}
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in paths.items()}
         if not any(by_path.values()):
             fail(f"{entry['name']} launched on no main path")
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    print("[10/10] summary")
+    print("[11/11] summary")
     print(json.dumps({"serve": serves}))
     print(json.dumps({"train": trains}))
     print(json.dumps({"grad": grad}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"layouts": layouts}))
+    print(json.dumps({"serve_layouts": serve_layouts}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,11 +16,16 @@ functions of ``parallel.sharding`` and a dry run can use them without a
 ``axis_sizes`` (``mesh_shape`` maps a ``DeviceMesh``'s ``mesh_dim_names`` and
 ``shape`` onto them).  Nothing here touches ``torch.distributed`` or a
 device at import: ``make_production_mesh`` and ``make_test_mesh`` build a
-``DeviceMesh`` over the running process group when they are called.
+``DeviceMesh`` over the running process group when they are called, and
+``run_ranks`` starts the ranks of a small mesh for the launchers'
+``--mesh DATAxMODEL``.
 """
 
 from __future__ import annotations
 
+import argparse
+import os
+import tempfile
 from dataclasses import dataclass
 
 GPUS_PER_NODE = 8
@@ -78,3 +83,53 @@ def mesh_device_count(mesh) -> int:
     for s in mesh_shape(mesh).axis_sizes:
         out *= s
     return out
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """"DATAxMODEL" -> (data, model)."""
+    try:
+        data, model = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh {text!r}: expected DATAxMODEL, e.g. 2x2") from None
+    if data < 1 or model < 1:
+        raise argparse.ArgumentTypeError(f"--mesh {text!r}: sizes >= 1")
+    return data, model
+
+
+def _rank_main(rank: int, fn, dims: tuple[int, int], device_type: str,
+               rendezvous: str, args: tuple) -> None:
+    import torch
+    import torch.distributed as dist
+
+    world = dims[0] * dims[1]
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+        backend = "nccl"
+    else:   # the ranks share the host's threads
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+        backend = "gloo"
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}",
+                            world_size=world, rank=rank)
+    try:
+        fn(rank, make_test_mesh(*dims, device_type=device_type), *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, dims: tuple[int, int], device_type: str, *args) -> None:
+    """Start ``data * model`` ranks with ``torch.multiprocessing`` (gloo on
+    the CPU, NCCL with one card a rank, through a ``file://`` rendezvous),
+    call ``fn(rank, mesh, *args)`` on each over a ("data", "model") mesh
+    of ``dims``, and wait for them.  ``fn`` and ``args`` must pickle."""
+    import torch
+    import torch.multiprocessing as mp
+
+    world = dims[0] * dims[1]
+    if device_type == "cuda" and world > torch.cuda.device_count():
+        raise RuntimeError(f"--mesh {dims[0]}x{dims[1]} needs {world} "
+                           f"cards, {torch.cuda.device_count()} found")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(fn, dims, device_type,
+                                   os.path.join(tmp, "rendezvous"), args),
+                 nprocs=world, join=True)

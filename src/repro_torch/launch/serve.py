@@ -20,6 +20,20 @@ and the frame or patch embeddings (``prompt_batch``).
 The JAX launcher sizes the decode cache as prompt + gen, leaving out a
 VLM's prefix rows, so its decode attends only to the last prompt + gen
 positions and forgets the image (ROADMAP §C).  ``generate`` counts them.
+
+``--mesh DATAxMODEL`` serves under the layouts of ``parallel.sharding``,
+as the reference's dry run lowers prefill and decode: it starts DATA*MODEL
+ranks (``launch.mesh.run_ranks``: gloo on the CPU, NCCL with one card a
+rank), each draws the parameters from the seed a part at a time, keeping
+its block under ``param_specs`` (``init_params``: no rank holds the model
+whole), and ``generate`` runs on those DTensors: the prompt's rows split
+over ``data``, the caches in ``cache_specs``' placements, the logits made
+whole before each greedy argmax so that every rank picks the same token
+(``get_model(..., context_parallel=True)`` puts the caches' sequence over
+``data`` x ``model`` instead, for batch-1 long contexts):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen2-7b-smoke --mesh 2x2
 """
 
 from __future__ import annotations
@@ -32,8 +46,11 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import parse_mesh, run_ranks
 from repro_torch.models import get_model
 from repro_torch.models.registry import Model
+from repro_torch.parallel import axes as ax
+from repro_torch.tree import leaves
 
 
 def _sync(device: torch.device) -> None:
@@ -77,12 +94,30 @@ def generate(model: Model, params, batch: dict, gen: int) -> dict:
     Returns the tokens [B, gen], the last logits, a device flag that every
     step's logits were finite, and host-clock seconds for prefill and for
     the decode loop, each ending in a synchronize.
+
+    DTensor parameters (``init_params``, ``distribute_params``) run under
+    their mesh's ``sharding_rules``: the batch is laid out by
+    ``batch_specs``, the caches stay DTensors, and the logits are made
+    whole (``axes.full``) before each argmax, so the tokens and logits
+    returned are plain tensors, the same on every rank.
     """
+    mesh = getattr(leaves(params)[0], "device_mesh", None)
+    if mesh is None:
+        return _generate(model, params, batch, gen)
+    from repro_torch.parallel.sharding import (distribute_batch,
+                                               sharding_rules)
+
+    with sharding_rules(mesh):
+        return _generate(model, params, distribute_batch(batch, mesh), gen)
+
+
+def _generate(model: Model, params, batch: dict, gen: int) -> dict:
     device = batch["tokens"].device
     max_seq = context_len(batch) + gen
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, max_seq)
+    logits = ax.full(logits)
     token = logits.argmax(-1, keepdim=True)
     finite = torch.isfinite(logits).all()
     _sync(device)
@@ -92,6 +127,7 @@ def generate(model: Model, params, batch: dict, gen: int) -> dict:
     t0 = time.perf_counter()
     for _ in range(gen - 1):
         logits, cache = model.decode(params, token, cache)
+        logits = ax.full(logits)
         token = logits.argmax(-1, keepdim=True)
         finite &= torch.isfinite(logits).all()
         out.append(token)
@@ -99,6 +135,37 @@ def generate(model: Model, params, batch: dict, gen: int) -> dict:
     return {"tokens": torch.cat(out, dim=1), "logits": logits,
             "finite": finite, "prefill_s": t_prefill,
             "decode_s": time.perf_counter() - t0, "decode_steps": gen - 1}
+
+
+def _report(cfg: ModelConfig, args, r: dict, say=print) -> None:
+    say(f"{cfg.name}: prefill {args.batch}x{args.prompt_len} "
+        f"in {r['prefill_s'] * 1e3:.1f} ms")
+    n = args.batch * r["decode_steps"]
+    if n:
+        say(f"decode: {n} tokens in {r['decode_s'] * 1e3:.1f} ms -> "
+            f"{n / r['decode_s']:.1f} tok/s")
+    seq = r["tokens"]
+    if not bool(r["finite"]):
+        raise SystemExit("non-finite logits")
+    if not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
+        raise SystemExit("token ids out of range")
+    say("sample token ids:", seq[0, :12].tolist())
+
+
+def _mesh_rank(rank: int, mesh, args) -> None:
+    from repro_torch.parallel.sharding import init_params, local_device
+
+    cfg = get_config(args.arch)
+    device = local_device(mesh)
+    model = get_model(cfg, device=device)
+    params = init_params(model, args.seed, mesh)
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed, device,
+                         frames=args.frames)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"mesh (data={args.mesh[0]}, model={args.mesh[1]}) on "
+        f"{'nccl' if device.type == 'cuda' else 'gloo'}: {cfg.name}",
+        flush=True)
+    _report(cfg, args, generate(model, params, batch, args.gen), say)
 
 
 def main() -> None:
@@ -112,7 +179,12 @@ def main() -> None:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", type=parse_mesh, default=None,
+                    help="DATAxMODEL ranks under the FSDP x TP layout")
     args = ap.parse_args()
+    if args.mesh is not None:
+        run_ranks(_mesh_rank, args.mesh, args.device, args)
+        return
 
     cfg = get_config(args.arch)
     device = torch.device(args.device)
@@ -120,19 +192,7 @@ def main() -> None:
     params = model.init(args.seed)
     batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed, device,
                          frames=args.frames)
-    r = generate(model, params, batch, args.gen)
-    print(f"{cfg.name}: prefill {args.batch}x{args.prompt_len} "
-          f"in {r['prefill_s'] * 1e3:.1f} ms")
-    n = args.batch * r["decode_steps"]
-    if n:
-        print(f"decode: {n} tokens in {r['decode_s'] * 1e3:.1f} ms -> "
-              f"{n / r['decode_s']:.1f} tok/s")
-    seq = r["tokens"]
-    if not bool(r["finite"]):
-        raise SystemExit("non-finite logits")
-    if not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
-        raise SystemExit("token ids out of range")
-    print("sample token ids:", seq[0, :12].tolist())
+    _report(cfg, args, generate(model, params, batch, args.gen))
 
 
 if __name__ == "__main__":

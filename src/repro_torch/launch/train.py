@@ -33,19 +33,19 @@ depth).
 ``--mesh DATAxMODEL`` trains under the FSDP x TP layout of
 ``parallel.sharding`` (the counterpart of lowering the reference's
 ``make_train_step`` under ``state_specs``/``batch_specs``): it starts
-DATA*MODEL ranks with ``torch.multiprocessing`` (gloo on the CPU, NCCL
-with one card a rank), builds the state as DTensors from the seed
+DATA*MODEL ranks (``launch.mesh.run_ranks``: gloo on the CPU, NCCL with
+one card a rank), builds the state as DTensors from the seed
 (``distribute_state``), splits each global batch's rows over ``data``
-(``batch_specs``) and runs ``make_sharded_step`` in a minimal loop
-without checkpoints (a sharded checkpoint is later work); ``--moe-ep``
-takes the expert-parallel MoE rules.  :func:`setup` takes the mesh
-itself (``mesh=``) for a caller that has started its ranks.
+(``batch_specs``), in ``--microbatches`` runs of rows where asked, and runs
+``make_sharded_step`` in a minimal loop without checkpoints (a sharded
+checkpoint is later work); ``--moe-ep`` takes the expert-parallel MoE
+rules.  :func:`setup` takes the mesh itself (``mesh=``) for a caller that
+has started its ranks.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import os
 import tempfile
@@ -58,11 +58,13 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch.mesh import parse_mesh, run_ranks
 from repro_torch.models import get_model
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel.compression import (EFState, init_ef,
                                               make_compressing_step)
+from repro_torch.parallel.sharding import local_device, sharding_rules
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.state import TrainState, init_state
 from repro_torch.train.step import make_train_step
@@ -77,20 +79,8 @@ class Trainer(NamedTuple):
     init: Callable[[], TrainState | tuple[TrainState, EFState]]
 
 
-def sharding_rules(mesh):
-    """The context the sharded step runs in: the logical mesh, and plain
-    tensors (rotary tables, masks, zeros) read as replicated."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    from repro_torch.parallel import axes as ax
-
-    stack = contextlib.ExitStack()
-    stack.enter_context(ax.logical_mesh(mesh))
-    stack.enter_context(implicit_replication())
-    return stack
-
-
-def make_sharded_step(model: Model, optimizer: AdamW, mesh):
+def make_sharded_step(model: Model, optimizer: AdamW, mesh,
+                      microbatches: int = 1):
     """``make_train_step`` on a state of DTensors (``distribute_state``):
     (state, global batch) -> (state, metrics).
 
@@ -100,12 +90,16 @@ def make_sharded_step(model: Model, optimizer: AdamW, mesh):
     weights through the reduce-scatter that is the backward of their FSDP
     gather, the replicated leaves (norm scales, biases under TP, the Mamba
     mixers' small leaves) through one explicit all-reduce of their pending
-    sums, before AdamW runs unchanged on the DTensors."""
+    sums, before AdamW runs unchanged on the DTensors.
+    ``microbatches > 1`` splits the global batch into runs of rows, as the
+    one-device step does, each laid out by ``batch_specs`` (each rank runs
+    its rows of each), and accumulates the gradients in fp32 in the
+    parameters' placements."""
     from repro_torch.parallel import axes as ax
     from repro_torch.parallel.sharding import distribute_batch
 
     def loss(params, batch):
-        value, parts = model.loss(params, batch)
+        value, parts = model.loss(params, distribute_batch(batch, mesh))
         return ax.full(value), {k: ax.full(v) for k, v in parts.items()}
 
     target: dict = {}
@@ -115,13 +109,14 @@ def make_sharded_step(model: Model, optimizer: AdamW, mesh):
                         grads, target["placements"])
 
     inner = make_train_step(dataclasses.replace(model, loss=loss), optimizer,
-                            grad_transform=to_param_placements)
+                            grad_transform=to_param_placements,
+                            microbatches=microbatches)
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         target["placements"] = tree_map(lambda p: tuple(p.placements),
                                         state.params)
         with sharding_rules(mesh):
-            state, metrics = inner(state, distribute_batch(batch, mesh))
+            state, metrics = inner(state, batch)
         return state, {k: ax.full(v) if isinstance(v, torch.Tensor) else v
                        for k, v in metrics.items()}
 
@@ -144,12 +139,12 @@ def setup(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                 total_steps=steps)
     pipe = SyntheticTokens(cfg, batch=batch, seq=seq, seed=seed)
     if mesh is not None:
-        if compress or microbatches != 1:
-            raise ValueError("--mesh takes neither --compress nor "
-                             "--microbatches")
+        if compress:
+            raise ValueError("--mesh does not take --compress")
         from repro_torch.parallel.sharding import distribute_state
 
-        return Trainer(model, opt, pipe, make_sharded_step(model, opt, mesh),
+        return Trainer(model, opt, pipe,
+                       make_sharded_step(model, opt, mesh, microbatches),
                        lambda: distribute_state(model, opt, seed, mesh))
     if compress:
         def init():
@@ -180,18 +175,6 @@ def train_compressed(t: Trainer, steps: int) -> list[float]:
     return losses
 
 
-def parse_mesh(text: str) -> tuple[int, int]:
-    """"DATAxMODEL" -> (data, model)."""
-    try:
-        data, model = (int(x) for x in text.lower().split("x"))
-    except ValueError:
-        raise argparse.ArgumentTypeError(
-            f"--mesh {text!r}: expected DATAxMODEL, e.g. 2x2") from None
-    if data < 1 or model < 1:
-        raise argparse.ArgumentTypeError(f"--mesh {text!r}: sizes >= 1")
-    return data, model
-
-
 def train_sharded(t: Trainer, steps: int, say=print) -> list[float]:
     """The sharded path's minimal loop (no checkpoints): the loss and
     gradient norm of every step, then the first and last losses."""
@@ -206,50 +189,21 @@ def train_sharded(t: Trainer, steps: int, say=print) -> list[float]:
     return losses
 
 
-def _mesh_rank(rank: int, args, rendezvous: str) -> None:
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_test_mesh
-
-    data, model = args.mesh
-    world = data * model
-    if args.device == "cuda":
-        torch.cuda.set_device(rank)
-        backend, device = "nccl", torch.device("cuda", rank)
-    else:   # the ranks share the host's threads
-        torch.set_num_threads(max(1, torch.get_num_threads() // world))
-        backend, device = "gloo", torch.device(args.device)
-    dist.init_process_group(backend, init_method=f"file://{rendezvous}",
-                            world_size=world, rank=rank)
-    try:
-        cfg = get_config(args.arch)
-        if args.moe_ep:
-            cfg = dataclasses.replace(cfg, moe_ep=True)
-        mesh = make_test_mesh(data, model, device_type=device.type)
-        t = setup(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                  lr=args.lr, seed=args.seed, device=device, mesh=mesh)
-        say = print if rank == 0 else (lambda *a, **k: None)
-        say(f"mesh (data={data}, model={model}) on {backend}: {cfg.name}",
-            flush=True)
-        losses = train_sharded(t, args.steps, say)
-        if rank == 0 and not all(np.isfinite(losses)):
-            raise RuntimeError(f"non-finite loss {losses}")
-    finally:
-        dist.destroy_process_group()
-
-
-def run_mesh(args) -> None:
-    """Start the mesh's ranks and wait for them."""
-    import torch.multiprocessing as mp
-
-    world = args.mesh[0] * args.mesh[1]
-    if args.device == "cuda" and world > torch.cuda.device_count():
-        raise RuntimeError(f"--mesh {args.mesh[0]}x{args.mesh[1]} needs "
-                           f"{world} cards, {torch.cuda.device_count()} "
-                           f"found")
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_mesh_rank, args=(args, os.path.join(tmp, "rendezvous")),
-                 nprocs=world, join=True)
+def _mesh_rank(rank: int, mesh, args) -> None:
+    cfg = get_config(args.arch)
+    if args.moe_ep:
+        cfg = dataclasses.replace(cfg, moe_ep=True)
+    device = local_device(mesh)
+    t = setup(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+              lr=args.lr, microbatches=args.microbatches, seed=args.seed,
+              device=device, mesh=mesh)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"mesh (data={args.mesh[0]}, model={args.mesh[1]}) on "
+        f"{'nccl' if device.type == 'cuda' else 'gloo'}: {cfg.name}",
+        flush=True)
+    losses = train_sharded(t, args.steps, say)
+    if rank == 0 and not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite loss {losses}")
 
 
 def main() -> None:
@@ -274,7 +228,7 @@ def main() -> None:
                     help="with --mesh: the expert-parallel MoE rules")
     args = ap.parse_args()
     if args.mesh is not None:
-        run_mesh(args)
+        run_ranks(_mesh_rank, args.mesh, args.device, args)
         return
 
     t = setup(get_config(args.arch), steps=args.steps, batch=args.batch,

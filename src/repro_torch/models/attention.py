@@ -18,6 +18,16 @@ Port of ``repro.models.attention``:
     ``_sdpa`` here: the same function.
 
 Weights keep the JAX layout [in, out] for ``x @ w``.
+
+Under the layouts (DTensor weights, ``parallel.sharding``) prefill computes
+each rank's heads and hands back the cache in ``cache_specs``' placements:
+batch over the data axes and the sequence over ``model`` (``cache_dims``),
+or, for context-parallel decode, the sequence over ``data`` x ``model``.
+Decode writes the new token's K/V into the rank's own rows of that cache
+and attends over them; where the sequence is split, the ranks' partial
+softmaxes combine exactly (``_sdpa_split``), as the reference's
+``context_parallel`` branch leaves to XLA.  Plain tensors take the
+one-device path unchanged.
 """
 
 from __future__ import annotations
@@ -57,8 +67,6 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def _project_qkv(p, x, cfg: ModelConfig):
-    B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -66,8 +74,17 @@ def _project_qkv(p, x, cfg: ModelConfig):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    return (ax.heads(q, cfg.n_heads), ax.heads(k, cfg.n_kv_heads),
+            ax.heads(v, cfg.n_kv_heads))
+
+
+def _merge_heads(out):
+    """[B, S, H, hd] -> [B, S, H * hd], split over ``model`` as ``wo``'s
+    rows are.  Heads that ``model`` does not divide arrive replicated
+    (``axes.heads``); splitting the merged dimension here (a local slice)
+    gives the backward its gradient in that placement, where the view back
+    to [B, S, H, hd] takes it whole."""
+    return ax.shard(out.reshape(*out.shape[:2], -1), ax.BATCH, None, ax.TP)
 
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
@@ -123,7 +140,6 @@ def attend_train(p, x, cfg: ModelConfig, *, is_causal: bool = True):
     where the config has one), or with no mask at all, as the JAX module's
     ``_sdpa`` branch masks it (its ``use_pallas=True`` branch computes the
     same function wherever the port calls it)."""
-    B, S, _ = x.shape
     q, k, v = _rotary_qkv(p, x, cfg)
     q = ax.shard(q, ax.BATCH, None, ax.TP, None)
     k = ax.shard(k, ax.BATCH, None, ax.TP if cfg.n_kv_heads > 1 else None,
@@ -131,35 +147,72 @@ def attend_train(p, x, cfg: ModelConfig, *, is_causal: bool = True):
     out = ops.flash_attention(q, k, v, causal=is_causal,
                               window=cfg.sliding_window if is_causal else 0)
     out = ax.shard(out, ax.BATCH, None, ax.TP, None)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return _merge_heads(out) @ p["wo"]
 
 
-def attend_prefill(p, x, cfg: ModelConfig, max_seq: int):
-    """Full-sequence pass that also materializes the decode cache."""
+def cache_dims(context_parallel: bool = False) -> tuple:
+    """The logical axes of a K/V cache [B, C, KV, hd], as ``cache_specs``
+    lays it out: batch over the data axes and the sequence over ``model``,
+    or (context parallel, batch 1) the sequence over ``data`` x ``model``."""
+    if context_parallel:
+        return (None, ax.CPTP, None, None)
+    return (ax.BATCH, ax.TP, None, None)
+
+
+def attend_prefill(p, x, cfg: ModelConfig, max_seq: int,
+                   context_parallel: bool = False):
+    """Full-sequence pass that also materializes the decode cache.  On a
+    mesh, K/V are computed on each rank's heads, the ring buffer rolled
+    there, and the cache then redistributed to ``cache_dims`` (an
+    all-to-all from heads to sequence over ``model``)."""
     B, S, _ = x.shape
     q, k, v = _rotary_qkv(p, x, cfg)
+    kv_heads = ax.TP if cfg.n_kv_heads > 1 else None
+    q = ax.shard(q, ax.BATCH, None, ax.TP, None)
+    k = ax.shard(k, ax.BATCH, None, kv_heads, None)
+    v = ax.shard(v, ax.BATCH, None, kv_heads, None)
     out = ops.flash_attention(q, k, v, causal=True,
                               window=cfg.sliding_window)
-    y = out.reshape(B, S, -1) @ p["wo"]
+    out = ax.shard(out, ax.BATCH, None, ax.TP, None)
+    y = _merge_heads(out) @ p["wo"]
 
     C = cache_len(cfg, max_seq)
+    kl, vl = ax.local(k), ax.local(v)
     if C >= S:
-        ck = F.pad(k, (0, 0, 0, 0, 0, C - S))
-        cv = F.pad(v, (0, 0, 0, 0, 0, C - S))
+        ck = F.pad(kl, (0, 0, 0, 0, 0, C - S))
+        cv = F.pad(vl, (0, 0, 0, 0, 0, C - S))
     else:  # ring buffer: keep the last C positions, aligned to pos % C
         start = S - C
-        ck = torch.roll(k[:, start:], shifts=S % C, dims=1)
-        cv = torch.roll(v[:, start:], shifts=S % C, dims=1)
-    return y, KVCache(k=ck, v=cv, length=S)
+        ck = torch.roll(kl[:, start:], shifts=S % C, dims=1)
+        cv = torch.roll(vl[:, start:], shifts=S % C, dims=1)
+    dims = cache_dims(context_parallel)
+    return y, KVCache(k=ax.shard(ax.like(ck, k), *dims),
+                      v=ax.shard(ax.like(cv, v), *dims), length=S)
 
 
-def attend_decode(p, x, cache: KVCache, cfg: ModelConfig):
+def _valid(cfg: ModelConfig, pos: int, C: int, offset: int, rows: int,
+           device):
+    """Which of the cache rows ``offset .. offset + rows - 1`` (of C) hold
+    a position, [1, rows], or None for all of them: the rows already
+    written, and every row of a sliding-window ring once it has wrapped
+    (``pos >= C``)."""
+    if cfg.sliding_window and pos >= C:
+        return None
+    return (torch.arange(offset, offset + rows, device=device) <= pos)[None]
+
+
+def attend_decode(p, x, cache: KVCache, cfg: ModelConfig,
+                  context_parallel: bool = False):
     """One-token step: x [B, 1, D] against the cache.
 
     The new K/V are written in place into ``cache.k``/``cache.v`` at slot
     ``length % C`` (the JAX package donates the buffers instead), and the
     returned cache shares those tensors with a length one higher.  The
     position stays a host int, so a step never waits for the device.
+
+    A cache of DTensors is first placed by ``cache_dims(context_parallel)``
+    (a no-op where prefill or ``distribute_cache`` put it) and decoded by
+    ``_decode_sharded``.
     """
     C = cache.k.shape[1]
     q, k, v = _project_qkv(p, x, cfg)
@@ -170,20 +223,94 @@ def attend_decode(p, x, cache: KVCache, cfg: ModelConfig):
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
 
-    slot = pos % C
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
-
-    # Valid positions are those already written.  For a sliding-window ring
-    # buffer every slot holds one of the last C positions once pos >= C;
-    # before that, slots > pos are still empty.
-    if cfg.sliding_window and pos >= C:
-        valid = None
+    if ax.is_dtensor(cache.k):
+        dims = cache_dims(context_parallel)
+        cache = cache._replace(k=ax.shard(cache.k, *dims),
+                               v=ax.shard(cache.v, *dims))
+        out = _decode_sharded(q, k, v, cache, cfg)
     else:
-        valid = torch.arange(C, device=x.device)[None, :] <= pos
-    out = _sdpa(q, cache.k, cache.v, valid, cfg)
-    y = out.reshape(x.shape[0], 1, -1) @ p["wo"]
+        slot = pos % C
+        cache.k[:, slot] = k[:, 0]
+        cache.v[:, slot] = v[:, 0]
+        valid = _valid(cfg, pos, C, 0, C, x.device)
+        out = _sdpa(q, cache.k, cache.v, valid, cfg)
+    y = _merge_heads(out) @ p["wo"]
     return y, cache._replace(length=pos + 1)
+
+
+def _seq_rows(cache_k) -> tuple[int, int]:
+    """(global index of the first, count) of this rank's rows of a cache
+    DTensor's sequence: each mesh dimension that shards it splits what the
+    earlier ones left, as DTensor orders them."""
+    mesh, offset, rows = cache_k.device_mesh, 0, cache_k.shape[1]
+    for i, pl in enumerate(cache_k.placements):
+        if pl.is_shard(1):
+            rows //= mesh.size(i)
+            offset += mesh.get_local_rank(i) * rows
+    return offset, rows
+
+
+def _decode_sharded(q, k, v, cache: KVCache, cfg: ModelConfig):
+    """Attention of the new token on a cache of DTensors, on local shards.
+
+    q, k and v are gathered to every head and placed by the cache's batch
+    (a few KB); the rank whose rows hold ``slot = pos % C`` writes the new
+    K/V there; each rank scores its rows for every head, masked by their
+    global slot indices; the ranks that split the sequence combine
+    (``_sdpa_split``); the output keeps the rank's heads for ``wo``, whose
+    rows are split over ``model``.  Where no mesh dimension of size > 1
+    splits the sequence (one rank, or a cache length the axis does not
+    divide, replicated by ``sanitize``) this is ``_sdpa`` on the local
+    tensors, the one-device arithmetic."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.k.device_mesh
+    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                 for pl in cache.k.placements)
+    q, k, v = (ax.local(t.redistribute(mesh, rows)) for t in (q, k, v))
+    kl, vl = ax.local(cache.k), ax.local(cache.v)
+    C, pos = cache.k.shape[1], cache.length
+    offset, n = _seq_rows(cache.k)
+    slot = pos % C
+    if offset <= slot < offset + n:
+        kl[:, slot - offset] = k[:, 0]
+        vl[:, slot - offset] = v[:, 0]
+    valid = _valid(cfg, pos, C, offset, n, q.device)
+    split = [i for i, pl in enumerate(cache.k.placements)
+             if pl.is_shard(1) and mesh.size(i) > 1]
+    out = (_sdpa_split(q, kl, vl, valid, mesh, split) if split
+           else _sdpa(q, kl, vl, valid, cfg))
+    out = DTensor.from_local(out, mesh, rows, run_check=False)
+    return ax.shard(out, ax.BATCH, None, ax.TP, None)
+
+
+def _sdpa_split(q, k, v, valid, mesh, split: list[int]):
+    """``_sdpa`` of one query row over a sequence split across the mesh
+    dimensions ``split``: each rank's scores over its rows (fp32, masked
+    by ``valid``), the max all-reduced, then the exp-sums and the weighted
+    values under one all-reduce, in fp32.  A rank with no valid row adds
+    exact zeros (its masked entries are zeroed, not exp'd)."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float())
+    s = s / math.sqrt(hd)
+    if valid is not None:
+        s = s.masked_fill(~valid, torch.finfo(s.dtype).min)
+    m = s.amax(-1, keepdim=True)
+    for i in split:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    e = torch.exp(s - m)
+    if valid is not None:
+        e = e.masked_fill(~valid, 0.0)
+    acc = torch.cat([torch.einsum("bkgs,bskh->bkgh", e, v.float()),
+                     e.sum(-1, keepdim=True)], dim=-1)
+    for i in split:
+        acc = funcol.all_reduce(acc, "sum", (mesh, i))
+    out = acc[..., :hd] / acc[..., hd:]
+    return out.to(v.dtype).reshape(B, 1, H, hd)
 
 
 def init_cross_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
@@ -194,23 +321,20 @@ def init_cross_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
 def attend_cross(p, x, enc_kv, cfg: ModelConfig):
     """Decoder cross-attention of x [B, S, D] over the encoder's K/V
     [B, Se, KV, hd] (``encode_kv``), no mask, any S and Se."""
-    B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = ax.heads(x @ p["wq"], cfg.n_heads)
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(1, 1, H, hd)
+        q = q + ax.heads(p["bq"], cfg.n_heads)
     k, v = enc_kv
     out = ops.flash_attention(q, k, v, causal=False)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return _merge_heads(out) @ p["wo"]
 
 
 def encode_kv(p, enc_out, cfg: ModelConfig):
     """Encoder states [B, Se, D] -> (k, v), each [B, Se, KV, hd]."""
-    B, Se, _ = enc_out.shape
-    KV, hd = cfg.n_kv_heads, cfg.hd
-    k = (enc_out @ p["wk"]).reshape(B, Se, KV, hd)
-    v = (enc_out @ p["wv"]).reshape(B, Se, KV, hd)
+    KV = cfg.n_kv_heads
+    k = ax.heads(enc_out @ p["wk"], KV)
+    v = ax.heads(enc_out @ p["wv"], KV)
     if cfg.qkv_bias:
-        k = k + p["bk"].reshape(1, 1, KV, hd)
-        v = v + p["bv"].reshape(1, 1, KV, hd)
+        k = k + ax.heads(p["bk"], KV)
+        v = v + ax.heads(p["bv"], KV)
     return k, v

@@ -19,7 +19,11 @@ refuses products of mixed dtypes.  For a float32 config the two agree.
 
 Decode runs against two caches: the causal self-attention KV cache of each
 decoder layer, and the cross-attention K/V of the encoder output, computed
-once by ``prefill``.
+once by ``prefill``.  On a mesh both come out of ``prefill`` in
+``cache_specs``' placements (the self-attention caches' sequence over
+``model``; the cross K/V whole on every rank, as that function lays out
+leaves it does not name), each layer gathers its weights over the FSDP
+axes, and the logits come back vocab-sharded.
 """
 
 from __future__ import annotations
@@ -136,8 +140,7 @@ def forward_train(params, frames, tokens, cfg: ModelConfig):
         h = checkpoint(_dec_layer_train, h, lp, enc_out, cfg,
                        use_reentrant=False)
     h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return ax.shard(h @ ax.fsdp_gather(params["lm_head"]), ax.BATCH, None,
-                    ax.TP)
+    return _logits(params, h)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -154,6 +157,11 @@ class EncDecCache(NamedTuple):
     cross: list[tuple[torch.Tensor, torch.Tensor]]    # encoder K/V per layer
 
 
+def _logits(params, h):
+    return ax.shard(h @ ax.fsdp_gather(params["lm_head"]), ax.BATCH, None,
+                    ax.TP)
+
+
 def prefill(params, frames, tokens, cfg: ModelConfig, max_seq: int):
     """Encode the frames and run the decoder over ``tokens`` -> (last
     position's logits [B, V], EncDecCache).  The final norm and the LM head
@@ -162,6 +170,7 @@ def prefill(params, frames, tokens, cfg: ModelConfig, max_seq: int):
     h = _embed(params, tokens, cfg)
     kvs, crosses = [], []
     for lp in params["dec_layers"]:
+        lp = ax.fsdp_gather(lp)
         x = ops.rmsnorm(h, lp["self_norm"], cfg.norm_eps)
         y, kv = attn.attend_prefill(lp["self_attn"], x, cfg, max_seq)
         h = h + y
@@ -169,31 +178,33 @@ def prefill(params, frames, tokens, cfg: ModelConfig, max_seq: int):
         ckv = attn.encode_kv(lp["cross_attn"], enc_out, cfg)
         h = h + attn.attend_cross(lp["cross_attn"], x, ckv, cfg)
         x = ops.rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + mlp(lp["mlp"], x, cfg)
+        h = ax.shard(h + mlp(lp["mlp"], x, cfg), ax.BATCH, None, None)
         kvs.append(kv)
-        crosses.append(ckv)
+        crosses.append(tuple(ax.shard(t, None, None, None, None)
+                             for t in ckv))
     h = ops.rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"])[:, 0], EncDecCache(kv=kvs, cross=crosses)
+    return _logits(params, h)[:, 0], EncDecCache(kv=kvs, cross=crosses)
 
 
 def decode_step(params, token, cache: EncDecCache, cfg: ModelConfig):
     """token [B, 1] + caches -> (logits [B, V], caches).  The self-attention
     K/V are written in place (``attention.attend_decode``); the position
     is the cache's host int."""
-    h = params["embed"][token]
     pos = cache.kv[0].length
+    h = ax.lookup(params["embed"], token)
     h = h + sinusoid_at(torch.arange(pos, pos + 1, device=h.device),
                         cfg.d_model, h.dtype)
+    h = ax.shard(h, ax.BATCH, None, None)
     kvs = []
     for lp, kv, ckv in zip(params["dec_layers"], cache.kv, cache.cross):
+        lp = ax.fsdp_gather(lp)
         x = ops.rmsnorm(h, lp["self_norm"], cfg.norm_eps)
         y, kv = attn.attend_decode(lp["self_attn"], x, kv, cfg)
         h = h + y
         x = ops.rmsnorm(h, lp["cross_norm"], cfg.norm_eps)
         h = h + attn.attend_cross(lp["cross_attn"], x, ckv, cfg)
         x = ops.rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + mlp(lp["mlp"], x, cfg)
+        h = ax.shard(h + mlp(lp["mlp"], x, cfg), ax.BATCH, None, None)
         kvs.append(kv)
     h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"])[:, 0], EncDecCache(kv=kvs,
-                                                       cross=cache.cross)
+    return _logits(params, h)[:, 0], EncDecCache(kv=kvs, cross=cache.cross)

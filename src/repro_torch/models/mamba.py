@@ -117,8 +117,22 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype,
         length=0)
 
 
+def state_placed(state: MambaState) -> MambaState:
+    """A decode state in ``cache_specs``' placements (batch over the data
+    axes; the SSM state's heads whole), where it is made of DTensors."""
+    return state._replace(conv=ax.shard(state.conv, ax.BATCH, None, None),
+                          ssm=ax.shard(state.ssm, ax.BATCH, None, None, None))
+
+
 def mamba_decode(p, u, cfg: ModelConfig, state: MambaState):
-    """Single-token recurrent step: u [B, 1, D] -> (y [B, 1, D], state)."""
+    """Single-token recurrent step: u [B, 1, D] -> (y [B, 1, D], state).
+
+    On a mesh the mixer's weights are whole on every rank (the rules split
+    none of them over ``model``; the unit's FSDP gather joined them) and
+    the state is split by batch rows, so the step runs on each rank's rows
+    of u and of the state (``_decode_local``)."""
+    if ax.is_dtensor(u):
+        return _decode_local(p, u, cfg, state)
     B = u.shape[0]
     d_in, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = u @ p["in_proj"]
@@ -143,3 +157,14 @@ def mamba_decode(p, u, cfg: ModelConfig, state: MambaState):
     out = y @ p["out_proj"]
     return out, MambaState(conv=window[:, 1:], ssm=ssm,
                            length=state.length + 1)
+
+
+def _decode_local(p, u, cfg: ModelConfig, state: MambaState):
+    u = ax.shard(u, ax.BATCH, None, None)
+    state = state_placed(state)
+    y, new = mamba_decode({k: ax.full(w) for k, w in p.items()},
+                          ax.local(u), cfg,
+                          state._replace(conv=ax.local(state.conv),
+                                         ssm=ax.local(state.ssm)))
+    return ax.like(y, u), new._replace(conv=ax.like(new.conv, state.conv),
+                                       ssm=ax.like(new.ssm, state.ssm))

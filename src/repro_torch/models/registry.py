@@ -14,7 +14,9 @@ Port of ``repro.models.registry``.  ``get_model(cfg, device=...)`` returns a
 ``batch`` is a dict whose keys depend on the family: tokens (and labels for
 the loss) always, plus ``prefix`` patch embeddings for the VLM family and
 ``frames`` for the encoder-decoder.  ``max_seq`` is the self-attention
-cache's length; for a VLM it counts the prefix rows.  The encoder-decoder's
+cache's length; for a VLM it counts the prefix rows.  With
+``context_parallel`` (the reference's ``long_500k`` cells) the decoder-only
+families' K/V caches put their sequence over ``data`` x ``model``.  The encoder-decoder's
 ``init_cache`` raises ``NotImplementedError``, as JAX's does: its decode
 cache holds the encoder's K/V, so it comes from ``prefill``.  ``loss``
 takes every family; on the card a Mamba unit's SSD scans train through the
@@ -45,7 +47,8 @@ class Model:
     init_parts: Callable[..., Any]
 
 
-def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
+def get_model(cfg: ModelConfig, device: str | torch.device = "cuda",
+              context_parallel: bool = False) -> Model:
     device = torch.device(device)
 
     def generator() -> torch.Generator:
@@ -87,10 +90,12 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
 
     def prefill_fn(params, batch, max_seq):
         return transformer.prefill(params, batch["tokens"], cfg, max_seq,
-                                   prefix=batch.get("prefix"))
+                                   prefix=batch.get("prefix"),
+                                   context_parallel=context_parallel)
 
     def decode_fn(params, token, cache):
-        return transformer.decode_step(params, token, cache, cfg)
+        return transformer.decode_step(params, token, cache, cfg,
+                                       context_parallel=context_parallel)
 
     def init_cache(batch: int, max_seq: int):
         return transformer.init_decode_cache(cfg, batch, max_seq, device)

@@ -18,11 +18,16 @@ scans too) and the train loss through ``ops.fused_cross_entropy``
 kernels.  The MoE FFN (``moe.moe_ffn``) and the Mamba mixer's conv, gates
 and skip are plain torch, as the JAX package computes them.
 
-On a mesh (DTensor parameters, ``parallel.sharding``) the train path
-carries the reference's activation annotations (``axes.shard``: a no-op on
-plain tensors), each unit gathers its weights over the FSDP axes at its
-entry (``axes.fsdp_gather``), and the embedding lookup runs on each rank's
-own tokens (``axes.lookup``).
+On a mesh (DTensor parameters, ``parallel.sharding``) the train and
+serving paths carry the reference's activation annotations
+(``axes.shard``: a no-op on plain tensors), each unit gathers its weights
+over the FSDP axes at its entry (``axes.fsdp_gather``), and the embedding
+lookup runs on each rank's own tokens (``axes.lookup``).  Prefill hands
+back its caches in ``cache_specs``' placements, and decode runs on them
+(``attention.attend_decode``, ``mamba.mamba_decode``); ``context_parallel``
+puts the K/V caches' sequence over ``data`` x ``model`` (batch-1 long
+contexts), as the reference's ``decode_step`` takes it.  The logits come
+back vocab-sharded: the caller makes them whole before an argmax.
 """
 
 from __future__ import annotations
@@ -265,25 +270,30 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for _ in range(n_units(cfg))]
 
 
-def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int):
+def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int,
+                        context_parallel: bool = False):
+    up = ax.fsdp_gather(up)
     kvs, ssms = [], []
     for j, sub in enumerate(unit_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         if sub["mixer"] == "attn":
-            y, kv = attn.attend_prefill(sp["attn"], x, cfg, max_seq)
+            y, kv = attn.attend_prefill(sp["attn"], x, cfg, max_seq,
+                                        context_parallel)
             kvs.append(kv)
         else:
             y, st = mb.mamba_forward(sp["mamba"], x, cfg)
-            ssms.append(st)
+            ssms.append(mb.state_placed(st))
         h = h + y
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
             h = h + _ffn(sp, x, sub, cfg)[0]
+        h = ax.shard(h, ax.BATCH, None, None)
     return h, LayerCache(kv=tuple(kvs), ssm=tuple(ssms))
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_seq: int, prefix=None):
+def prefill(params, tokens, cfg: ModelConfig, max_seq: int, prefix=None,
+            context_parallel: bool = False):
     """Full-context pass over the prefix embeddings (if any) and ``tokens``
     -> (last-position logits [B, V], per-unit caches).  ``max_seq`` counts
     the prefix rows: a cache shorter than the context keeps only its last
@@ -296,19 +306,22 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, prefix=None):
     h = embed_tokens(params, tokens, cfg, prefix)
     caches = []
     for up in params["units"]:
-        h, cache = _apply_unit_prefill(h, up, cfg, max_seq)
+        h, cache = _apply_unit_prefill(h, up, cfg, max_seq, context_parallel)
         caches.append(cache)
     h = ops.rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     return lm_head(params, h, cfg)[:, 0], caches
 
 
-def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig):
+def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig,
+                       context_parallel: bool = False):
+    up = ax.fsdp_gather(up)
     kvs, ssms = [], []
     for j, sub in enumerate(unit_layout(cfg)):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         if sub["mixer"] == "attn":
-            y, kv = attn.attend_decode(sp["attn"], x, cache.kv[len(kvs)], cfg)
+            y, kv = attn.attend_decode(sp["attn"], x, cache.kv[len(kvs)], cfg,
+                                       context_parallel)
             kvs.append(kv)
         else:
             y, st = mb.mamba_decode(sp["mamba"], x, cfg, cache.ssm[len(ssms)])
@@ -317,17 +330,19 @@ def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig):
         if sub["ffn"]:
             x = ops.rmsnorm(h, sp["ffn_norm"], cfg.norm_eps)
             h = h + _ffn(sp, x, sub, cfg)[0]
+        h = ax.shard(h, ax.BATCH, None, None)
     return h, LayerCache(kv=tuple(kvs), ssm=tuple(ssms))
 
 
-def decode_step(params, token, cache: list[LayerCache], cfg: ModelConfig):
+def decode_step(params, token, cache: list[LayerCache], cfg: ModelConfig,
+                context_parallel: bool = False):
     """token [B, 1] + caches -> (logits [B, V], caches).  The K/V buffers
     are updated in place (see ``attention.attend_decode``); the Mamba
     states are replaced."""
     h = embed_tokens(params, token, cfg)
     new_caches = []
     for up, ucache in zip(params["units"], cache):
-        h, new = _apply_unit_decode(h, up, ucache, cfg)
+        h, new = _apply_unit_decode(h, up, ucache, cfg, context_parallel)
         new_caches.append(new)
     h = ops.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return lm_head(params, h, cfg)[:, 0], new_caches

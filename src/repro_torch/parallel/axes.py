@@ -196,6 +196,27 @@ def shard(x: torch.Tensor, *dims: str | None) -> torch.Tensor:
     return _redistribute(x, placements(P(*resolved), mesh))
 
 
+def heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [..., n * hd] -> [..., n, hd].  A DTensor whose last dimension is
+    split over mesh dimensions that do not divide ``n`` (28 heads on an
+    8-way ``model`` axis) is replicated there first, as the reference drops
+    such an axis; a plain tensor is reshaped."""
+    shape = (*x.shape[:-1], n, x.shape[-1] // n)
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    split = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(last):
+            split *= mesh.size(i)
+    if n % split:
+        x = _redistribute(x, tuple(Replicate() if p.is_shard(last) else p
+                                   for p in x.placements))
+    return x.reshape(shape)
+
+
 def batch_size_divisor() -> int:
     """How many ways BATCH is split on the active mesh (1 off-mesh, and 1
     for a mesh given by axis names alone)."""
@@ -234,13 +255,18 @@ def fsdp_gather(tree):
 def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``.  A DTensor table is gathered whole, and the
     lookup runs on each rank's own tokens (the same indexing as off a
-    mesh); the rows come back placed as the tokens.  The local gradient of
-    the table is a pending sum over the mesh dimensions that split the
-    tokens, which the gather's backward reduce-scatters.  (A vocab-parallel
-    lookup, which would not gather the table, is later work.)"""
+    mesh); the rows come back placed as the tokens (replicated where they
+    are a plain tensor, such as a greedy token made whole).  The local
+    gradient of the table is a pending sum over the mesh dimensions that
+    split the tokens, which the gather's backward reduce-scatters.  (A
+    vocab-parallel lookup, which would not gather the table, is later
+    work.)"""
     if not is_dtensor(table):
         return table[tokens]
     from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not is_dtensor(tokens):   # the same tokens on every rank
+        tokens = like_replicated(tokens, table)
 
     grad = tuple(Partial() if p.is_shard() else Replicate()
                  for p in tokens.placements)

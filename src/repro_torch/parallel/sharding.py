@@ -19,8 +19,11 @@ reference's spec of the stacked leaf without its leading unit entry.
 
 Specs are the port's ``PartitionSpec`` (``axes.P``): per tensor dimension
 ``None``, an axis, or a tuple of axes.  ``placements`` turns one into
-DTensor placements on a mesh, and ``distribute_state`` builds a train state
-of DTensors from a seed without ever holding the whole model on one card.
+DTensor placements on a mesh; ``distribute_state`` and ``init_params``
+build a train state or parameters of DTensors from a seed without ever
+holding the whole model on one card; ``distribute_params``,
+``distribute_cache`` and ``distribute_batch`` lay out trees that exist
+(on a device, or as fake tensors in a dry run).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.transformer import STACKED, assemble
 from repro_torch.parallel.axes import DP_AXES, P, PartitionSpec, placements
-from repro_torch.tree import leaves_with_path, unflatten
+from repro_torch.tree import leaves, leaves_with_path, unflatten
 
 FSDP_AXIS = "data"
 TP_AXIS = "model"
@@ -230,14 +233,52 @@ def _local_shard(full: torch.Tensor, mesh, pl: tuple) -> torch.Tensor:
     return local.clone(memory_format=torch.contiguous_format)
 
 
-def distribute_leaf(path: tuple, full: torch.Tensor, mesh):
-    """The leaf at ``path`` as a DTensor laid out by its sanitized spec."""
+def _distributed(full: torch.Tensor, spec: PartitionSpec, mesh):
+    """``full`` as a DTensor laid out by ``spec`` on ``mesh``: this rank's
+    block, on its device."""
     from torch.distributed.tensor import DTensor
 
-    pl = placements(sanitize(spec_for(path, full), full.shape, mesh), mesh)
-    return DTensor.from_local(_local_shard(full, mesh, pl), mesh, pl,
-                              run_check=False, shape=full.shape,
-                              stride=full.stride())
+    pl = placements(spec, mesh)
+    local = _local_shard(full, mesh, pl).to(local_device(mesh))
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def _distribute_tree(tree, spec_tree, mesh):
+    return unflatten(tree, [
+        leaf if not isinstance(leaf, torch.Tensor)
+        else _distributed(leaf, spec, mesh)
+        for leaf, spec in zip(leaves(tree), leaves(spec_tree))])
+
+
+def distribute_params(params, mesh, specs=param_specs):
+    """A parameter tree as DTensors laid out by ``specs(params, mesh)``
+    (``param_specs``, FSDP x TP as the reference's dry run lowers serving,
+    or ``state_specs`` for a ``TrainState``), the MoE rules as
+    ``use_moe_ep`` sets them."""
+    return _distribute_tree(params, specs(params, mesh), mesh)
+
+
+def distribute_cache(cache, mesh, context_parallel: bool = False):
+    """A decode cache (``init_cache``'s, or ``launch.specs.decode_specs``')
+    as DTensors laid out by ``cache_specs``; host ints (the lengths) stay
+    as they are."""
+    return _distribute_tree(cache, cache_specs(cache, mesh,
+                                               context_parallel), mesh)
+
+
+def sharding_rules(mesh):
+    """The context a step on DTensors runs in: the logical mesh, and plain
+    tensors (rotary tables, masks, zeros, a greedy token) read as
+    replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel import axes as ax
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(ax.logical_mesh(mesh))
+    stack.enter_context(implicit_replication())
+    return stack
 
 
 def local_device(mesh) -> torch.device:
@@ -251,49 +292,45 @@ def distribute_batch(batch: dict, mesh) -> dict:
     """A global batch (numpy arrays or tensors, the same on every rank) as
     DTensors laid out by ``batch_specs``: each rank keeps its rows, on its
     device."""
-    from torch.distributed.tensor import DTensor
-
     specs = batch_specs(batch, mesh)
-    device = local_device(mesh)
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(np.ascontiguousarray(v))
-        pl = placements(specs[k], mesh)
-        out[k] = DTensor.from_local(_local_shard(v, mesh, pl).to(device),
-                                    mesh, pl, run_check=False,
-                                    shape=v.shape, stride=v.stride())
-    return out
+    return {k: _distributed(torch.from_numpy(np.ascontiguousarray(v))
+                            if isinstance(v, np.ndarray) else v, specs[k],
+                            mesh)
+            for k, v in batch.items()}
+
+
+def init_params(model, seed: int, mesh):
+    """``model.init(seed)`` as DTensors laid out by ``param_specs``, drawn
+    a part at a time: each leaf whole on this rank's device from the seed's
+    generator, in ``init_lm``'s (``init_encdec``'s) order
+    (``Model.init_parts``), the rank keeping its block.  A rank holds one unit's or the embedding's
+    full weights at a time, never the model's, and ``full_tensor()`` of
+    every leaf equals the one-card init bit for bit.  The MoE weights take
+    the expert-parallel rules where the config asks for them
+    (``moe_ep``)."""
+    def distributed(key: str, value):
+        part = {key: [value] if key in STACKED else value}
+        got = _distribute_tree(part, param_specs(part, mesh), mesh)[key]
+        return key, got[0] if key in STACKED else got
+
+    with use_moe_ep(model.cfg.moe_ep):
+        return assemble(distributed(key, value)
+                        for key, value in model.init_parts(seed))
 
 
 def distribute_state(model, optimizer, seed: int, mesh):
     """A ``TrainState`` of DTensors: params, m and v laid out by
     ``state_specs`` on ``mesh``.
 
-    Each leaf is drawn whole on this rank's device from the seed's
-    generator, in ``init_lm``'s (``init_encdec``'s) order, a unit at a time
-    (``Model.init_parts``); the rank keeps its block and the rest is freed.
-    So a rank holds one unit's or the embedding's full weights at a time,
-    never the model's, and ``full_tensor()`` of every leaf equals the
-    one-card ``init_state`` bit for bit.  The MoE weights take the
-    expert-parallel rules where the config asks for them (``moe_ep``).  The
-    moments are zeros with their parameter's placements."""
+    The parameters come from ``init_params`` (a part at a time, never the
+    whole model on one rank; ``full_tensor()`` of every leaf equals the
+    one-card ``init_state`` bit for bit).  The moments are zeros with their
+    parameter's placements."""
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.train.state import TrainState
     from repro_torch.tree import tree_map
 
-    count: dict = {}
-
-    def distributed(key: str, value):
-        count[key] = count.get(key, -1) + 1
-        prefix = (key, count[key]) if key in STACKED else (key,)
-        return key, unflatten(value, [
-            distribute_leaf(prefix + path, leaf, mesh)
-            for path, leaf in leaves_with_path(value)])
-
-    with use_moe_ep(model.cfg.moe_ep):
-        params = assemble(distributed(key, value)
-                          for key, value in model.init_parts(seed))
+    params = init_params(model, seed, mesh)
 
     def zeros(t):
         return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
@@ -306,7 +343,8 @@ def distribute_state(model, optimizer, seed: int, mesh):
 
 
 __all__ = ["FSDP_AXIS", "TP_AXIS", "P", "PartitionSpec", "batch_specs",
-           "cache_specs", "distribute_batch", "distribute_leaf",
-           "distribute_state", "local_device",
-           "param_specs", "placements", "sanitize",
-           "serving_param_specs", "spec_for", "state_specs", "use_moe_ep"]
+           "cache_specs", "distribute_batch", "distribute_cache",
+           "distribute_params", "distribute_state",
+           "init_params", "local_device", "param_specs", "placements",
+           "sanitize", "serving_param_specs", "sharding_rules", "spec_for",
+           "state_specs", "use_moe_ep"]

@@ -59,8 +59,7 @@ def make_train_step(model: Model, optimizer: AdamW,
                 raise ValueError(f"batch of {rows} rows does not split into "
                                  f"{microbatches} microbatches")
             size = rows // microbatches
-            g32 = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in flat]
+            g32 = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
             loss = 0.0
             parts_sum: dict = {}
             for i in range(microbatches):

@@ -1586,3 +1586,269 @@ def test_cuda_pipeline_qwen2_on_four_cards_matches_one_card(cuda, tmp_path):
     assert out["err"] <= 2e-2 * out["scale"]
     assert out["counts"]["flash_attention"] == \
         PIPE_MICRO * PIPE_UNITS // PIPE_STAGES
+
+
+# ------------------------------------------ serving under the layouts
+
+SERVE_LLAVA = dict(layers=60, batch=4, prompt=128, gen=32)
+SERVE_F32 = dict(layers=2, batch=4, prompt=128, gen=8)
+SERVE_CP = dict(layers=2, prompt=8192, gen=16)
+
+
+def _serve_model(arch: str, layers: int, dtype: str, rank: int,
+                 context_parallel: bool = False):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype=dtype)
+    return get_model(cfg, device=f"cuda:{rank}",
+                     context_parallel=context_parallel)
+
+
+def _serve_llava_rank(rank: int, world: int, tmp: str) -> None:
+    """(d): llava-next-34b at 60 layers on (data=1, model=4), each rank
+    drawing the parameters a part at a time and keeping its shards.  Then
+    the same prefill in float32 on the same mesh (137.6 GB of weights: no
+    card holds them alone), and rank 0, its shards freed, runs the bf16
+    prefill on its card alone (68.8 GB of weights fit one card; the
+    serving phase of ``chip_smoke.py`` cuts depth for its time)."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import init_params
+
+    mesh = _card_mesh(rank, world, tmp, dims=(1, 4))
+    try:
+        model = _serve_model("llava-next-34b", SERVE_LLAVA["layers"],
+                             "bfloat16", rank)
+        t0 = time.perf_counter()
+        params = init_params(model, 0, mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_bytes = sum(p.to_local().numel() * p.element_size()
+                          for p in _leaves(params))
+        inputs = serve.prompt_batch(model.cfg, SERVE_LLAVA["batch"],
+                                    SERVE_LLAVA["prompt"], 0, f"cuda:{rank}")
+        serve.generate(model, params, inputs, 2)
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launch_counts()
+        r = serve.generate(model, params, inputs, SERVE_LLAVA["gen"])
+        out = {"tokens": r["tokens"].cpu(), "finite": bool(r["finite"]),
+               "prefill_ms": 1e3 * r["prefill_s"],
+               "decode_ms": 1e3 * r["decode_s"] / r["decode_steps"],
+               "peak": torch.cuda.max_memory_allocated(),
+               "param_bytes": state_bytes, "init_s": init_s,
+               "launches": kops.launch_counts()}
+        prefill = serve.generate(model, params, inputs, 1)["logits"]
+        out["prefill_logits"] = prefill.float().cpu()
+        del params, r, prefill
+        torch.cuda.empty_cache()
+        model32 = _serve_model("llava-next-34b", SERVE_LLAVA["layers"],
+                               "float32", rank)
+        params = init_params(model32, 0, mesh)
+        prefill = serve.generate(model32, params, inputs, 1)["logits"]
+        out["f32_logits"] = prefill.float().cpu()
+        del params, prefill
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            one = serve.generate(model, model.init(0), inputs, 1)
+            out["one_card_logits"] = one["logits"].float().cpu()
+            out["one_card_peak"] = torch.cuda.max_memory_allocated()
+            del one
+            torch.cuda.empty_cache()
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves
+
+    return leaves(tree)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_llava_full_depth_on_four_cards(cuda, tmp_path):
+    """(d) llava-next-34b at full width and depth (60 layers, bf16, 68.8
+    GB of weights) served on (data=1, model=4): batch 4, 2880 prefix rows
+    and a 128-token prompt, 32 tokens.  The tokens equal on every rank,
+    the logits finite, the flash and RMSNorm kernels launched on each
+    rank's shards.  The prefill's logits are held to the float32 prefill
+    of the same weights on the same mesh: their relative L2 error at most
+    twice that of the bf16 prefill on one card (at 60 layers the bf16
+    roundings of the split sums reach 2.9e-2 of the largest |logit|
+    between the two bf16 runs, so neither is the other's reference).
+    Prints the per-card peak memory, prefill ms and decode ms/step."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _spawn_cards(_serve_llava_rank, tmp_path)
+    outs = [torch.load(tmp_path / f"rank{r}.pt") for r in range(4)]
+    for r, out in enumerate(outs):
+        print(f"rank {r}: init {out['init_s']:.1f} s, weights "
+              f"{out['param_bytes'] / 1e9:.2f} GB, peak "
+              f"{out['peak'] / 1e9:.2f} GB; prefill {out['prefill_ms']:.1f} "
+              f"ms, decode {out['decode_ms']:.2f} ms/step; launches "
+              f"{out['launches']}; tokens[0, :8] "
+              f"{out['tokens'][0, :8].tolist()}")
+        assert out["finite"]
+        assert torch.equal(out["tokens"], outs[0]["tokens"])
+        assert torch.equal(out["prefill_logits"], outs[0]["prefill_logits"])
+        assert out["launches"]["flash_attention"] == SERVE_LLAVA["layers"]
+        assert out["launches"]["rmsnorm"] > 0
+    got, one = outs[0]["prefill_logits"], outs[0]["one_card_logits"]
+    ref = outs[0]["f32_logits"]
+
+    def rel(x):
+        return float((x - ref).norm() / ref.norm())
+
+    e_tp, e_one = rel(got), rel(one)
+    err, scale = float((got - one).abs().max()), float(one.abs().max())
+    print(f"prefill against float32 on the mesh (relative L2): four cards "
+          f"{e_tp!r}, one card {e_one!r}; four cards vs one card max |diff| "
+          f"{err!r} of largest |logit| {scale!r} ({err / scale!r}); first "
+          f"tokens equal {torch.equal(got.argmax(-1), one.argmax(-1))} "
+          f"(float32 {torch.equal(got.argmax(-1), ref.argmax(-1))}); "
+          f"one-card peak {outs[0]['one_card_peak'] / 1e9:.2f} GB")
+    assert torch.isfinite(one).all() and torch.isfinite(ref).all()
+    assert e_tp <= 2 * e_one
+
+
+def _serve_f32_rank(rank: int, world: int, tmp: str) -> None:
+    """(e): float32 qwen2 and llava, 2 layers, on (2, 2); rank 0 then
+    serves the same models on its card alone."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import init_params
+
+    mesh = _card_mesh(rank, world, tmp)
+    try:
+        out = {}
+        for arch in ("qwen2-7b", "llava-next-34b"):
+            model = _serve_model(arch, SERVE_F32["layers"], "float32", rank)
+            inputs = serve.prompt_batch(model.cfg, SERVE_F32["batch"],
+                                        SERVE_F32["prompt"], 0,
+                                        f"cuda:{rank}")
+            params = init_params(model, 0, mesh)
+            r = serve.generate(model, params, inputs, SERVE_F32["gen"])
+            del params
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:
+                one = serve.generate(model, model.init(0), inputs,
+                                     SERVE_F32["gen"])
+                out[arch] = {"tokens": r["tokens"].cpu(),
+                             "want_tokens": one["tokens"].cpu(),
+                             "err": float((r["logits"] - one["logits"])
+                                          .abs().max()),
+                             "scale": float(one["logits"].abs().max())}
+                torch.cuda.empty_cache()
+            dist.barrier()
+        if rank == 0:
+            torch.save(out, f"{tmp}/out.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_serve_f32_on_four_cards_matches_one_card(cuda, tmp_path):
+    """(e) float32 qwen2-7b and llava-next-34b at full width, 2 layers, on
+    (data=2, model=2): greedy tokens equal to one card's, the last logits
+    within 1e-4 of the largest |logit|."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _spawn_cards(_serve_f32_rank, tmp_path)
+    out = torch.load(tmp_path / "out.pt")
+    for arch, got in out.items():
+        print(f"{arch}: max |diff| {got['err']!r} of largest |logit| "
+              f"{got['scale']!r}; tokens equal "
+              f"{torch.equal(got['tokens'], got['want_tokens'])}")
+        assert torch.equal(got["tokens"], got["want_tokens"]), arch
+        assert got["err"] <= 1e-4 * got["scale"], arch
+
+
+def _serve_cp_rank(rank: int, world: int, tmp: str) -> None:
+    """(f): mixtral-8x22b (2 layers) at batch 1 with context-parallel
+    decode on (2, 2), every step's logits kept; rank 0 then runs the same
+    model on its card alone, fed the same tokens."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+    from repro_torch.parallel import axes as ax
+    from repro_torch.parallel.sharding import (distribute_batch, init_params,
+                                               sharding_rules)
+
+    mesh = _card_mesh(rank, world, tmp)
+    try:
+        model = _serve_model("mixtral-8x22b", SERVE_CP["layers"], "bfloat16",
+                             rank, context_parallel=True)
+        inputs = serve.prompt_batch(model.cfg, 1, SERVE_CP["prompt"], 0,
+                                    f"cuda:{rank}")
+        max_seq = SERVE_CP["prompt"] + SERVE_CP["gen"]
+        params = init_params(model, 0, mesh)
+        logits_by_step, tokens = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sharding_rules(mesh):
+            logits, cache = model.prefill(params,
+                                          distribute_batch(inputs, mesh),
+                                          max_seq)
+            placements = [str(c.kv[0].k.placements) for c in cache]
+            for _ in range(SERVE_CP["gen"]):
+                logits = ax.full(logits)
+                logits_by_step.append(logits.float().cpu())
+                tokens.append(logits.argmax(-1, keepdim=True))
+                if len(tokens) < SERVE_CP["gen"]:
+                    logits, cache = model.decode(params, tokens[-1], cache)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        del params, cache
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            params = model.init(0)
+            with torch.no_grad():
+                want, cache = model.prefill(params, inputs, max_seq)
+                wants = [want.float().cpu()]
+                for token in tokens[:-1]:
+                    want, cache = model.decode(params, token, cache)
+                    wants.append(want.float().cpu())
+            torch.save({"got": logits_by_step, "want": wants,
+                        "tokens": torch.cat(tokens, 1).cpu(),
+                        "placements": placements, "run_s": run_s},
+                       f"{tmp}/out.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_context_parallel_decode_on_four_cards_matches_one_card(
+        cuda, tmp_path):
+    """(f) mixtral-8x22b at full width cut to 2 of its 56 layers, bf16,
+    batch 1, a prompt of 8192 (twice its 4096-row sliding window, so the
+    ring has wrapped), 16 tokens, the caches' sequence over data x model on
+    (2, 2): every step's logits within 2e-2 of the largest |logit| of the
+    same model on one card fed the same tokens."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _spawn_cards(_serve_cp_rank, tmp_path)
+    out = torch.load(tmp_path / "out.pt")
+    errs = [float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(out["got"], out["want"])]
+    print(f"CP decode: cache placements {out['placements'][0]}; "
+          f"{out['run_s']:.2f} s for prefill and {SERVE_CP['gen'] - 1} "
+          f"steps; worst step {max(errs)!r} of the largest |logit|; tokens "
+          f"{out['tokens'][0].tolist()}")
+    assert "Shard(dim=1), Shard(dim=1)" in out["placements"][0]
+    assert len(errs) == SERVE_CP["gen"] and max(errs) <= 2e-2, errs
