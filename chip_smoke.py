@@ -9,7 +9,9 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
 
 1. device    -- the card's name and power limit (nvidia-smi), torch versions;
 2. build     -- nvcc for each CUDA source (all started together), Triton
-                JIT, build seconds, ptxas register and spill lines; each bf16
+                JIT of the cross-entropy, build seconds, ptxas register and
+                spill lines (RMSNorm's instantiations a line per kernel,
+                dtype and layout); each bf16
                 tensor-core kernel's spill bytes (ptxas), its tensor-core
                 instructions (HMMA/HGMMA in ``cuobjdump -sass``) and its
                 asynchronous copies (LDGSTS, i.e. cp.async), failing on a
@@ -42,6 +44,13 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 the backward without the causal mask at Sq 448 x Sk 1500,
                 RMSNorm at D 512 and 7168, the cross-entropy at V 51865
                 and 64000; timed beside their bounds and library calls);
+                RMSNorm also at mamba2-370m's widths (D 1024 and 2048:
+                train rows both ways, decode rows) and whisper's decoder
+                backward ([16, 448, 512]), every RMSNorm decode row with the
+                host's time per call, an empty kernel of the same library
+                timed the same two ways (the launch floor), the backward
+                timed on input copies that exceed the L2 and its dx and
+                dscale bit-equal across two calls;
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
                 tokens, logits within 1e-3 (dense qwen2, mixtral with a
@@ -275,6 +284,7 @@ TRAINS = (("qwen2-7b", 8, TRAIN_BATCH, TRAIN_SEQ, None),
           ("mamba2-370m", 48, 4, TRAIN_SEQ, None))
 # Copies of a timed kernel's inputs: four prefill-sized sets exceed the L2.
 COPIES = {"prefill": 4, "decode": 1}
+L2_BYTES = 50e6   # H100 SXM; timed backward copies hold at least twice it
 # The engine phase: the batched-bench setup of the repo's simulator-core
 # benchmark (every registered scenario at full size, 20 seeds as one batch),
 # plus ``mixed`` on ``fat_tree`` (paths of up to six links).  Card lanes
@@ -440,23 +450,50 @@ def _check_bf16_tensor_cores() -> dict[str, dict]:
     return report
 
 
+def _rmsnorm_build_lines() -> None:
+    """RMSNorm's kernels from its ptxas log, one line per kernel, dtype and
+    layout: registers and spill bytes by vectors a thread (NV; "fast" the
+    forward's aligned one-dtype path)."""
+    from repro_torch.kernels import build
+
+    types = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half":
+             "float16"}
+    rows: dict[tuple, list] = {}
+    for name, info in _ptxas(build.build_log("rmsnorm")).items():
+        m = re.search(r"(rmsnorm_(?:fwd|bwd)_kernel)"
+                      r"I(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E"
+                      r"(Lb1E)?", name)
+        key = ((m.group(1), types[m.group(2)],
+                "a block a row" if m.group(4) == "1" else "a warp a row")
+               if m else
+               (re.search(r"\d(rmsnorm_[a-z0-9_]*kernel)", name).group(1), "",
+                ""))
+        rows.setdefault(key, []).append(
+            (int(m.group(3)) if m else 0, bool(m and m.group(5)),
+             info.get("registers"), info.get("spill_bytes", 0)))
+    for (kernel, dtype, layout), insts in sorted(rows.items()):
+        print(f"  rmsnorm: {kernel} {dtype} {layout}: " + ", ".join(
+            (f"NV{nv}{' fast' if fast else ''} " if nv else "")
+            + f"{regs} registers {spill} spill bytes"
+            for nv, fast, regs, spill in sorted(insts)))
+
+
 def phase_build() -> dict[str, dict]:
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_ce as ce
-    from repro_torch.kernels import rmsnorm as rn
 
     print("[2/11] build")
     t0 = time.perf_counter()
     build.build()
     t_nvcc = time.perf_counter() - t0
     for name in build.SOURCES:
+        if name == "rmsnorm":
+            _rmsnorm_build_lines()
+            continue
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    # Triton JIT of the four Triton kernels at the model's widths.
-    x = torch.ones(1, 3584, device="cuda", dtype=torch.bfloat16)
-    rn.rmsnorm(x, x[0], 1e-6)
-    rn.rmsnorm_bwd(x, x[0], x, 1e-6)
+    # Triton JIT of the two cross-entropy kernels at the model's widths.
     logits = torch.ones(1, 152064, device="cuda", dtype=torch.bfloat16)
     labels = torch.zeros(1, dtype=torch.int64, device="cuda")
     _, lse = ce.fused_cross_entropy(logits, labels)
@@ -504,8 +541,8 @@ def _rmsnorm_entry(cfg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     D, eps = cfg.d_model, cfg.norm_eps
     scale = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).bfloat16()
-    entry = {"name": "rmsnorm", "route": "triton",
-             "source": "src/repro_torch/kernels/rmsnorm.py",
+    entry = {"name": "rmsnorm", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "replaces": "src/repro/kernels/rmsnorm.py:25"}
     for rows, key in (((BATCH, PROMPT), "prefill"), ((BATCH, 1), "decode"),
                       ((TRAIN_BATCH, TRAIN_SEQ), "train")):
@@ -520,7 +557,21 @@ def _rmsnorm_entry(cfg) -> dict:
             entry.update(t)
         else:
             entry["decode"] = t
+    entry["launch_floor"] = _launch_floor()
     return entry
+
+
+def _launch_floor() -> dict:
+    """The library's empty kernel, timed as the RMSNorm rows are: back to
+    back on the card, and per call from the host."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    t = {"ms": time_ms(rn.empty_launch, [()]),
+         "call_ms": time_ms(rn.empty_launch, [()], device_only=False)}
+    print(f"  time rmsnorm launch floor (empty kernel, csrc/rmsnorm.cu): "
+          f"{t['ms']:.4f} ms back to back, {t['call_ms']:.4f} ms per call "
+          f"from the host")
+    return t
 
 
 def _flash_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -967,9 +1018,10 @@ def _flash_bwd_entry(cfg, fwd: dict) -> dict:
 def _rmsnorm_bwd_row(label: str, shape, dtype, g, eps: float,
                      timed: bool) -> dict:
     """The RMSNorm backward on random x, dy and scale of ``shape`` against
-    autograd through the plain version in float32; with ``timed`` the
-    kernel, that autograd and ``F.rms_norm``'s backward timed beside the
-    bound."""
+    autograd through the plain version in float32, and two calls bit-equal;
+    with ``timed`` the kernel, that autograd and ``F.rms_norm``'s backward
+    timed beside the bound on input copies that hold at least twice the
+    L2."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -981,38 +1033,53 @@ def _rmsnorm_bwd_row(label: str, shape, dtype, g, eps: float,
                                    device="cuda")).to(dtype)
     label = f"rmsnorm_bwd {label}{list(shape)} {str(dtype).split('.')[-1]}"
     got = rn.rmsnorm_bwd(x, scale, dy, eps)
+    again = rn.rmsnorm_bwd(x, scale, dy, eps)
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        fail(f"{label}: two calls of the backward differ")
     want = _grads(lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy,
                   torch.float32)
     row = {"max_abs_err": _check_grads(label, got, want, BWD_TOL[dtype],
                                        ("x", "scale")),
-           "shape": list(shape)}
+           "shape": list(shape), "bit_equal": True}
+    print(f"  check {label}: dx and dscale bit-equal across two calls")
+    del got, again, want
     if not timed:
         return row
-    # x and dy read, dx written (scale and dscale are a few KB).
-    n = x.numel()
-    n_bytes = 3 * n * x.element_size() + 2 * shape[-1] * 2
+    # x and dy read, dx written, scale read and dscale written.
+    n, D = x.numel(), shape[-1]
+    n_bytes = 3 * n * x.element_size() + 2 * D * scale.element_size()
     b_ms, b_by = bound(n_bytes, 10 * n, FP32_FLOPS)
+    copies = max(2, math.ceil(2 * L2_BYTES / (3 * n * x.element_size())))
+    sets = [(x, scale, dy)] + [(torch.randn_like(x), scale,
+                                torch.randn_like(dy))
+                               for _ in range(copies - 1)]
+
+    def kernel(x, s, dy):
+        return rn.rmsnorm_bwd(x, s, dy, eps)
+
+    def timers(fn):
+        return [(_backward_timer(fn, (x, s), dy),) for x, s, dy in sets]
+
     row.update(
-        ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()]),
-        call_ms=time_ms(lambda: rn.rmsnorm_bwd(x, scale, dy, eps), [()],
-                        device_only=False),
-        plain_ms=time_ms(_backward_timer(
-            lambda x, s: ref.rmsnorm_ref(x, s, eps), (x, scale), dy), [()]),
-        library_ms=time_ms(_backward_timer(
-            lambda x, s: F.rms_norm(x, (shape[-1],), s, eps), (x, scale),
-            dy), [()]),
-        bound_ms=b_ms, bound_by=b_by)
+        ms=time_ms(kernel, sets),
+        call_ms=time_ms(kernel, sets, device_only=False),
+        plain_ms=time_ms(lambda t: t(), timers(
+            lambda x, s: ref.rmsnorm_ref(x, s, eps))),
+        library_ms=time_ms(lambda t: t(), timers(
+            lambda x, s: F.rms_norm(x, (D,), s, eps))),
+        bound_ms=b_ms, bound_by=b_by, copies=copies)
     print(f"  time {label}: kernel {row['ms']:.4f} ms (per call from the "
           f"host {row['call_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
           f"library {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-          f"{n_bytes / 1e6:.1f} MB)")
+          f"{n_bytes / 1e6:.1f} MB), {100 * b_ms / row['ms']:.1f}% of the "
+          f"bound; {copies} input sets")
     return row
 
 
 def _rmsnorm_bwd_entry(cfg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    entry = {"name": "rmsnorm_bwd", "route": "triton",
-             "source": "src/repro_torch/kernels/rmsnorm.py",
+    entry = {"name": "rmsnorm_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "replaces": "src/repro/kernels/rmsnorm.py:25",
              "note": "backward of rmsnorm; the TPU kernel is forward-only, so "
                      "this kernel has no TPU counterpart"}
@@ -1416,10 +1483,11 @@ def _family_rows(entries: list[dict]) -> None:
     """Every kernel of the whisper-base and llava-next-34b paths (phases 5
     and 6) against its plain version in bf16 at the shapes those paths give
     it, the prefill, encoder, cross-attention, norm and loss shapes timed
-    too (the Sq != Sk backward also checked in float32).  Each row goes
-    into its kernel's entry under the cell's name and the row's role."""
+    too (the Sq != Sk backward also checked in float32), and RMSNorm at
+    mamba2-370m's two widths.  Each row goes into its kernel's entry under
+    the cell's name and the row's role."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
 
     by = {e["name"]: e for e in entries}
     flash, bwd = by["flash_attention"], by["flash_attention_bwd"]
@@ -1435,12 +1503,6 @@ def _family_rows(entries: list[dict]) -> None:
             label, ops.flash_attention(q, k, v, causal=causal),
             _flash_plain(q, k, v, causal), FLASH_TOL[q.dtype]),
             "shape": list(q.shape), "kv_shape": list(k.shape)}
-
-    def norm_check(label, x, scale, eps) -> dict:
-        return {"max_abs_err": check(
-            f"rmsnorm {label} {list(x.shape)} bf16", ops.rmsnorm(x, scale, eps),
-            ref.rmsnorm_ref(x, scale, eps), RMSNORM_TOL),
-            "shape": list(x.shape)}
 
     # whisper-base: MHA at hd 64; serve 16 x (1500 frames, 224 tokens),
     # train 16 x (1500 frames, 448 tokens).
@@ -1484,10 +1546,12 @@ def _family_rows(entries: list[dict]) -> None:
     scale = (1 + 0.1 * randn(D, dtype=torch.float32)).to(bf16)
     by["rmsnorm"][f"{name} encoder"] = _rmsnorm_row(
         f"{name} encoder", randn(Bs, Fs, D), scale, eps, 2)
-    by["rmsnorm"][f"{name} decode"] = norm_check(
-        f"{name} decode", randn(Bs, 1, D), scale, eps)
+    by["rmsnorm"][f"{name} decode"] = _rmsnorm_row(
+        f"{name} decode", randn(Bs, 1, D), scale, eps, 1)
     by["rmsnorm_bwd"][f"{name} encoder"] = _rmsnorm_bwd_row(
         f"{name} encoder ", (Bt, Ft, D), bf16, g, eps, True)
+    by["rmsnorm_bwd"][f"{name} decoder"] = _rmsnorm_bwd_row(
+        f"{name} decoder ", (Bt, St, D), bf16, g, eps, True)
     f, b = _ce_rows(f"{name} ", Bt * St, cfg.vocab_size, bf16, g, True)
     by["fused_cross_entropy"][f"{name} train"] = f
     by["fused_cross_entropy_bwd"][f"{name} train"] = b
@@ -1518,13 +1582,29 @@ def _family_rows(entries: list[dict]) -> None:
     scale = (1 + 0.1 * randn(D, dtype=torch.float32)).to(bf16)
     by["rmsnorm"][f"{name} prefill"] = _rmsnorm_row(
         f"{name} prefill", randn(Bs, Ss, D), scale, eps, 1)
-    by["rmsnorm"][f"{name} decode"] = norm_check(
-        f"{name} decode", randn(Bs, 1, D), scale, eps)
+    by["rmsnorm"][f"{name} decode"] = _rmsnorm_row(
+        f"{name} decode", randn(Bs, 1, D), scale, eps, 1)
     by["rmsnorm_bwd"][f"{name} train"] = _rmsnorm_bwd_row(
         f"{name} train ", (Bt, Stt, D), bf16, g, eps, True)
     f, b = _ce_rows(f"{name} ", Bt * St, cfg.vocab_size, bf16, g, True)
     by["fused_cross_entropy"][f"{name} train"] = f
     by["fused_cross_entropy_bwd"][f"{name} train"] = b
+    torch.cuda.empty_cache()
+
+    # mamba2-370m: RMSNorm at d_model 1024 (the blocks' and final norms) and
+    # d_inner 2048 (the mixer's gated norm); serve 4 x 2048, train 4 x 4096.
+    cfg = get_config("mamba2-370m")
+    name, eps = cfg.name, cfg.norm_eps
+    _, Bs, _, _, _ = serves[name]
+    _, _, Bt, St, _ = trains[name]
+    for D in (cfg.d_model, cfg.d_inner):
+        scale = (1 + 0.1 * randn(D, dtype=torch.float32)).to(bf16)
+        by["rmsnorm"][f"{name} train D{D}"] = _rmsnorm_row(
+            f"{name} train", randn(Bt, St, D), scale, eps, 2)
+        by["rmsnorm"][f"{name} decode D{D}"] = _rmsnorm_row(
+            f"{name} decode", randn(Bs, 1, D), scale, eps, 1)
+        by["rmsnorm_bwd"][f"{name} train D{D}"] = _rmsnorm_bwd_row(
+            f"{name} train ", (Bt, St, D), bf16, g, eps, True)
 
 
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:

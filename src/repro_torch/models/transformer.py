@@ -10,7 +10,7 @@ text positions only.  Layers are grouped
 into the same repeating *units* as in the JAX module (``unit_layout``), but
 parameters are a list with one dict per unit in place of arrays stacked
 over units, and the ``lax.scan`` over units becomes a loop.  Every RMSNorm
-goes through ``ops.rmsnorm`` (the Triton kernel on the card), every prefill
+goes through ``ops.rmsnorm`` (the CUDA kernel on the card), every prefill
 or train attention through ``ops.flash_attention``, every prefill SSD scan
 through ``ops.ssd_scan`` (the CUDA kernels on the card; the train path's
 scans too) and the train loss through ``ops.fused_cross_entropy``

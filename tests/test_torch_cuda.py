@@ -29,7 +29,9 @@ from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import ssd_scan as tssd
 
 TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
-        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+        "bfloat16": dict(rtol=2e-2, atol=2e-2),
+        # RMSNorm only: one float16 rounding (2^-11) of the output
+        "float16": dict(rtol=2e-3, atol=2e-3)}
 
 
 def _normal(seed: int, shape) -> np.ndarray:
@@ -296,7 +298,8 @@ def test_cuda_ssd_scan_refuses_unaligned_bf16_rows(cuda):
 # query rows or rows in another order).  Cross-entropy: float32 1e-5,
 # bfloat16 2e-2, as in tests/test_kernels.py.
 
-BWD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2,
+            "float16": 2e-3}   # RMSNorm only: one float16 rounding
 
 
 def _assert_grad_close(got, want, dtype, label="", top=0.0):
@@ -472,6 +475,170 @@ def test_cuda_rmsnorm_bwd_matches_plain(cuda, shape, dtype):
     for name, g, w in zip(("x", "scale"), got, want):
         assert g.dtype == x.dtype
         _assert_grad_close(g, w, dtype, f"d{name}")
+
+
+def _norm_widths() -> list[int]:
+    """Every width a config normalises up to the kernels' limit: d_model,
+    and the Mamba mixer's inner width where the config has one."""
+    from repro_torch.configs import all_configs
+
+    widths = set()
+    for cfg in all_configs().values():
+        widths.add(cfg.d_model)
+        if cfg.ssm_state:
+            widths.add(cfg.d_inner)
+    return sorted(w for w in widths if w <= trn.MAX_D)
+
+
+def _rmsnorm_fwd_bwd(x, scale, dy, eps=1e-6):
+    """The kernels' forward and backward on x, counting one launch each,
+    against the plain version and autograd through it in float32.  dx's
+    atol is the tolerance times its largest entry or, where larger, times
+    the largest rstd*g*s: at D 1, dx = rstd*g*s*(1 - x^2) cancels to
+    rounding noise of that size on both sides."""
+    before = (trn.launches, trn.bwd_launches)
+    xk, sk = x.detach().requires_grad_(), scale.detach().requires_grad_()
+    y = ops.rmsnorm(xk, sk, eps)
+    got = torch.autograd.grad(y, (xk, sk), dy)
+    torch.cuda.synchronize()
+    assert (trn.launches, trn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    dtype = str(x.dtype).split(".")[-1]
+    np.testing.assert_allclose(_np(y), _np(ref.rmsnorm_ref(x, scale, eps)),
+                               **TOLS[dtype])
+    want = _plain_grads(lambda a, b: ref.rmsnorm_ref(a, b, eps), (x, scale),
+                        dy)
+    xf = x.float()
+    rstd = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    terms = float((rstd * dy.float() * scale.float()).abs().max())
+    for name, g, w, like in zip(("x", "scale"), got, want, (x, scale)):
+        assert g.dtype == like.dtype and g.shape == like.shape
+        if name == "x":
+            tol = BWD_TOLS[dtype]
+            np.testing.assert_allclose(
+                _np(g), _np(w), rtol=tol,
+                atol=tol * max(float(w.abs().max()), terms), err_msg="dx")
+        else:
+            _assert_grad_close(g, w, dtype, f"d{name}")
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", _norm_widths())
+def test_cuda_rmsnorm_at_config_widths(cuda, D, dtype):
+    """Forward and backward at every config width, over more rows than the
+    backward has blocks (a row count the grid does not divide)."""
+    rows = 3 * 132 + 5
+    x = _torch(_normal(0, (rows, D)), dtype, cuda)
+    scale = _torch(1 + 0.1 * _normal(1, (D,)), dtype, cuda)
+    _rmsnorm_fwd_bwd(x, scale, _torch(_normal(2, (rows, D)), dtype, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(5, 1), (9, 7), (3, 2, 33), (17, 1000),
+                                   (1, 4096), (1, 1000), (1, 16384)])
+def test_cuda_rmsnorm_odd_widths_and_one_row(cuda, shape, dtype):
+    """D 1, 7, 33 (not 16-byte rows: the plain-load path), 1000, and one
+    row of a wide and a narrow D."""
+    x = _torch(_normal(3, shape), dtype, cuda)
+    scale = _torch(1 + 0.1 * _normal(4, shape[-1:]), dtype, cuda)
+    _rmsnorm_fwd_bwd(x, scale, _torch(_normal(5, shape), dtype, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [512, 3584])
+def test_cuda_rmsnorm_unaligned_views(cuda, D):
+    """Rows that start 2 bytes past a 16-byte boundary, with a row stride of
+    D + 1 elements, and a float32 scale beside bf16 rows."""
+    buf = _torch(_normal(6, (40, D + 1)), "bfloat16", cuda)
+    x = buf[:, 1:]
+    assert x.data_ptr() % 16 and x.stride(0) == D + 1
+    dy = _torch(_normal(7, (40, D + 1)), "bfloat16", cuda)[:, 1:]
+    scale = _torch(1 + 0.1 * _normal(8, (D,)), "bfloat16", cuda)
+    _rmsnorm_fwd_bwd(x, scale, dy)
+    _rmsnorm_fwd_bwd(x.contiguous(), scale.float(), dy.contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_zero_rows(cuda):
+    x = torch.empty(0, 3, 512, device=cuda, dtype=torch.bfloat16)
+    scale = torch.ones(512, device=cuda, dtype=torch.bfloat16)
+    before = (trn.launches, trn.bwd_launches)
+    assert trn.rmsnorm(x, scale, 1e-6).shape == x.shape
+    dx, dscale = trn.rmsnorm_bwd(x, scale, x, 1e-6)
+    assert dx.shape == x.shape and bool((dscale == 0).all())
+    assert (trn.launches, trn.bwd_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1024, 7168])
+def test_cuda_rmsnorm_bwd_takes_a_strided_dy(cuda, D):
+    """A dy whose last dimension is not contiguous (copied), and one whose
+    rows are strided (read in place)."""
+    x = _torch(_normal(9, (2, 33, D)), "bfloat16", cuda)
+    scale = _torch(1 + 0.1 * _normal(10, (D,)), "bfloat16", cuda)
+    dy_t = _torch(_normal(11, (D, 33, 2)), "bfloat16", cuda).permute(2, 1, 0)
+    assert dy_t.stride(-1) != 1
+    _rmsnorm_fwd_bwd(x, scale, dy_t)
+    dy_r = _torch(_normal(12, (2, 66, D)), "bfloat16", cuda)[:, ::2]
+    _rmsnorm_fwd_bwd(x, scale, dy_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 4096, 1024), (2, 1000, 3584)])
+def test_cuda_rmsnorm_bwd_is_deterministic(cuda, shape, dtype):
+    x = _torch(_normal(13, shape), dtype, cuda)
+    scale = _torch(1 + 0.1 * _normal(14, shape[-1:]), dtype, cuda)
+    dy = _torch(_normal(15, shape), dtype, cuda)
+    a = trn.rmsnorm_bwd(x, scale, dy, 1e-6)
+    b = trn.rmsnorm_bwd(x, scale, dy, 1e-6)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,D", [(6341, 512), (5000, 7), (5000, 1000),
+                                    (3000, 2048), (1200, 3584),
+                                    (300, 16384)])
+def test_cuda_rmsnorm_dscale_is_the_blocked_order(cuda, rows, D, dtype):
+    """The kernel's dscale equals ``rmsnorm_bwd_blocked``'s bit for bit at
+    the grid the launcher takes (``bwd_grid``), over more rows than the
+    grid's teams (several rows a team, several blocks a dscale group).  x is
+    +-1 and eps 0, so rstd is exactly 1 and each row's g*x^ is +-g exactly
+    on both sides: only the order of the sums over rows, teams and blocks
+    is left, and random g's float32 sums change their last bits under
+    another order."""
+    rng = np.random.default_rng(16)
+    x = _torch(np.where(rng.random((rows, D)) < 0.5, -1.0, 1.0)
+               .astype(np.float32), dtype, cuda)
+    scale = _torch(1 + 0.1 * _normal(17, (D,)), "float32", cuda)
+    dy = _torch(_normal(18, (rows, D)), dtype, cuda)
+    blocks, teams = trn.bwd_grid(x, scale, dy)
+    assert rows > 2 * blocks * teams
+    dx, dscale = trn.rmsnorm_bwd(x, scale, dy, 0.0)
+    want_dx, want = trn.rmsnorm_bwd_blocked(x.cpu(), scale.cpu(), dy.cpu(),
+                                            0.0, blocks, teams)
+    assert torch.equal(dscale.cpu(), want), (blocks, teams)
+    _assert_grad_close(dx, want_dx, dtype, "dx")
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_refuses_what_it_does_not_take(cuda):
+    x = torch.ones(4, 16, device=cuda)
+    before = (trn.launches, trn.bwd_launches)
+    for bad_x, bad_s, match in (
+            (torch.ones(4, 16384 + 8, device=cuda),
+             torch.ones(16384 + 8, device=cuda), "D must be"),
+            (x.double(), torch.ones(16, device=cuda), "float32, bfloat16"),
+            (x.t(), torch.ones(4, device=cuda), "contiguous"),
+            (x, torch.ones(8, device=cuda), "scale must be")):
+        with pytest.raises(ValueError, match=match):
+            trn.rmsnorm(bad_x, bad_s, 1e-6)
+    with pytest.raises(ValueError, match="dy must be like x"):
+        trn.rmsnorm_bwd(x, torch.ones(16, device=cuda), x.bfloat16(), 1e-6)
+    assert (trn.launches, trn.bwd_launches) == before
 
 
 @pytest.mark.cuda
