@@ -50,7 +50,10 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 host's time per call, an empty kernel of the same library
                 timed the same two ways (the launch floor), the backward
                 timed on input copies that exceed the L2 and its dx and
-                dscale bit-equal across two calls;
+                dscale bit-equal across two calls; last, the flash forward
+                and backward at head_dim 32 (``launch/train_lm.py``'s tiny
+                preset: B4 S64 H4, causal), float32 and bf16, timed beside
+                their bounds;
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
                 tokens, logits within 1e-3 (dense qwen2, mixtral with a
@@ -112,10 +115,19 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 ``mixed`` on ``fat_tree``, seeds 0-19 as one batch on the
                 card (cold and warm walls, host reads per run), held lane
                 by lane to the same batch on the CPU (JCT/CCT and makespan
-                within 1e-6, equal events); then every one of those cells
-                through ``repro_torch.experiments.run_cells_batched`` on
-                the card, and one warm ``pipe_serve`` batch traced
-                (``torch.profiler``: idle share, kernels per step);
+                within 1e-6, equal events); then every one of those cells,
+                with msa, varys and fair cells and one chaos cell
+                (intensity 1.0) on ``mixed``, through
+                ``repro_torch.experiments.run_cells_batched`` on the card:
+                the fifo records held to the port's own ``run_cell`` (the
+                numpy simulator) within 1e-6 per job JCT and CCT, the
+                others equal to it but for ``wall_s``; one warm
+                ``pipe_serve`` batch traced (``torch.profiler``: idle
+                share, kernels per step); then the sweep's ``--smoke``
+                profile through ``repro_torch.launch.sweep``, its
+                ``check()`` passed (MSA >= varys), its headline ratio and
+                fingerprint printed, the fingerprint equal to the one the
+                port and the reference give on a CPU host;
 9. layouts   -- the per-card bytes of every architecture's train state
                 under ``state_specs`` on the production mesh's shapes
                 (data=32, model=8) and (pod=2, data=32, model=8); then
@@ -142,7 +154,8 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 one rank (``launch.dryrun``), their H100 roofline bound
                 beside the measured times;
 11. the ``{"serve": ...}``, ``{"train": ...}``, ``{"grad": ...}``,
-   ``{"kernels": [...]}``, ``{"engine": [...]}``, ``{"layouts": ...}`` and
+   ``{"kernels": [...]}``, ``{"engine": [...]}``, ``{"sweep": ...}``,
+   ``{"layouts": ...}`` and
    ``{"serve_layouts": ...}`` summary lines, then the ``{"ok": true, ...}``
    line.
 
@@ -293,10 +306,31 @@ ENGINE_SEEDS = 20
 ENGINE_EXTRA = (("mixed", "fat_tree"),)
 ENGINE_TOL = 1e-6
 ENGINE_STEPS_PER_SYNC = 16   # lockstep steps between two reads of the flags
+# The cells of the same call that the engine does not take: the ordered-rate
+# policies on ``mixed`` (seeds 0-2) and one chaos cell, through ``run_cell``
+# on worker processes.  Batched fifo records are held to ``run_cell``'s
+# within the repo's batched-bench tolerance (BATCHED_TOL of
+# benchmarks/perf_sim_core.py), the others equal but for ``wall_s``.
+ENGINE_POLICIES = ("msa", "varys", "fair")
+ENGINE_POLICY_SEEDS = 3
+ENGINE_CHAOS = 1.0
+ENGINE_WORKERS = 2
+BATCHED_TOL = 1e-6
+# The fingerprint of the sweep's --smoke aggregate, as the reference's
+# benchmarks/sweep.py and the port's launch/sweep.py both give it on a CPU
+# host (tests/test_torch_experiments.py holds the two equal).
+SMOKE_FINGERPRINT = ("afc98a0d13e1c04c29eabf8e27ec929a"
+                     "ddba113fbeab1388b6869d3bd1a4e52c")
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _no_wall(rec: dict) -> dict:
+    """A sweep record without its one machine-dependent field."""
+    return {**rec, "result": {k: v for k, v in rec["result"].items()
+                              if k != "wall_s"}}
 
 
 def time_ms(fn, inputs: list[tuple], iters: int = 20, warmup: int = 3,
@@ -329,6 +363,13 @@ def time_ms(fn, inputs: list[tuple], iters: int = 20, warmup: int = 3,
 def bound(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _peak(dtype) -> float:
+    """The card's peak rate for a flash kernel's products in ``dtype``:
+    the bf16 kernels' on the tensor cores, the float32 ones' on the CUDA
+    cores."""
+    return BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
 
 
 def check(label: str, got: torch.Tensor, want: torch.Tensor, tol: float,
@@ -618,7 +659,7 @@ def _flash_row(label: str, make, causal: bool, copies: int,
     # q, k and v read once, the output (q's shape) written once.
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     flops = 4 * B * H * hd * _flash_pairs(Sq, k.shape[1], causal, 0)
-    b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    b_ms, b_by = bound(n_bytes, flops, _peak(q.dtype))
     args = [(q, k, v)] + [make() for _ in range(copies - 1)]
 
     def kernel(q, k, v):
@@ -936,7 +977,7 @@ def _flash_bwd_row(label: str, q, k, v, dout, causal: bool, window: int,
     n_bytes = (sum(t.numel() * t.element_size()
                    for t in (q, k, v, out, dout, q, k, v)) + lse.numel() * 4)
     flops = 10 * B * h * d * _flash_pairs(Sq, k.shape[1], causal, window)
-    b_ms, b_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    b_ms, b_by = bound(n_bytes, flops, _peak(q.dtype))
     row.update(
         ms=time_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal,
                                                      window=window),
@@ -1632,7 +1673,41 @@ def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     torch.cuda.empty_cache()
     _family_rows(entries)
     torch.cuda.empty_cache()
+    _head_dim_32_rows(entries)
     return entries
+
+
+def _head_dim_32_rows(entries: list[dict]) -> None:
+    """The flash kernels at head_dim 32, the shape of
+    ``launch/train_lm.py``'s tiny preset (float32, causal), forward and
+    backward against their plain versions, timed beside the bound; the
+    same shape in bf16 (the tensor-core kernels, the tiles padded to 64
+    columns) checked."""
+    from repro_torch.launch.train_lm import PRESETS
+
+    p = PRESETS["tiny"]
+    B, S, H, KV, hd = (p["batch"], p["seq"], p["n_heads"], p["n_kv_heads"],
+                       p["head_dim"])
+    by = {e["name"]: e for e in entries}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        shape = f"B{B} S{S} H{H} KV{KV} hd{hd} {name} causal"
+
+        def qkv():
+            return (randn(B, S, H, hd, dtype=dtype),
+                    randn(B, S, KV, hd, dtype=dtype),
+                    randn(B, S, KV, hd, dtype=dtype))
+
+        by["flash_attention"][f"train_lm tiny {name}"] = _flash_row(
+            f"flash_attention train_lm tiny {shape}", qkv, True, 1)
+        by["flash_attention_bwd"][f"train_lm tiny {name}"] = _flash_bwd_row(
+            f"flash_attention_bwd train_lm tiny {shape}", *qkv(),
+            randn(B, S, H, hd, dtype=dtype), True, 0, True)
 
 
 def _expected_launches(cfg, steps: int) -> dict[str, int]:
@@ -2698,7 +2773,7 @@ def _engine_row(scenario: str, topology: str, lanes: list) -> tuple[dict, list]:
 def phase_engine() -> list[dict]:
     from repro_torch.appdag import SCENARIO_TOPOLOGY, SCENARIOS, build_scenario
     from repro_torch.core import simtorch
-    from repro_torch.experiments import run_cells_batched
+    from repro_torch.experiments import Cell, run_cell, run_cells_batched
     from repro_torch.launch import profile_serve
 
     cases = [(name, SCENARIO_TOPOLOGY.get(name, "big_switch"))
@@ -2715,29 +2790,33 @@ def phase_engine() -> list[dict]:
         rows.append(row)
         packed[scenario, topology] = lanes
 
-    # The entry point a sweep calls: every cell above, grouped and batched.
-    @dataclasses.dataclass(frozen=True)
-    class Cell:
-        scenario: str
-        policy: str
-        topology: str
-        seed: int
-        fault_intensity: float = 0.0
-
-    cells = [Cell(sc, "fifo", topo, s) for sc, topo in cases
-             for s in range(ENGINE_SEEDS)]
+    # The entry point a sweep calls: every cell above, grouped and batched
+    # on the card, and the cells the engine does not take (the ordered-rate
+    # policies and a chaos cell), which it hands to the numpy simulator's
+    # ``run_cell`` in worker processes.
+    fifo = [Cell(sc, "fifo", topo, s) for sc, topo in cases
+            for s in range(ENGINE_SEEDS)]
+    rest = [Cell("mixed", policy, "big_switch", s)
+            for policy in ENGINE_POLICIES for s in range(ENGINE_POLICY_SEEDS)]
+    rest.append(Cell("mixed", "msa", "big_switch", 0, ENGINE_CHAOS))
+    # Interleaved, so that the records' order is checked across both kinds.
+    cells = fifo[:len(fifo) // 2] + rest + fifo[len(fifo) // 2:]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    recs = run_cells_batched(cells, device="cuda")
+    recs = run_cells_batched(cells, workers=ENGINE_WORKERS, device="cuda")
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     worst = 0.0
     for cell, rec in zip(cells, recs):
+        if (rec["policy"], rec["seed"], rec["scenario"], rec["topology"]) != (
+                cell.policy, cell.seed, cell.scenario, cell.topology):
+            fail(f"run_cells_batched record out of order: {rec}")
+        if cell.policy != "fifo":
+            continue
         lane = cpu_lanes[cell.scenario, cell.topology][cell.seed]
         res = rec["result"]
-        if (rec["engine"], rec["seed"], rec["scenario"], rec["topology"]) != (
-                "simtorch", cell.seed, cell.scenario, cell.topology):
-            fail(f"run_cells_batched record out of order: {rec}")
+        if rec.get("engine") != "simtorch":
+            fail(f"run_cells_batched {cell}: not run on the engine")
         if res["events"] != lane.events:
             fail(f"run_cells_batched {cell}: {res['events']} events, the CPU "
                  f"lane {lane.events}")
@@ -2747,9 +2826,42 @@ def phase_engine() -> list[dict]:
     if not worst <= ENGINE_TOL:
         fail(f"run_cells_batched on the card differs from the CPU lanes by "
              f"{worst:.3e}")
-    print(f"  run_cells_batched: {len(cells)} cells in {len(cases)} batches "
-          f"on the card in {sweep_s:.3f} s (building included); max |diff| "
-          f"vs the CPU lanes {worst:.3e}")
+    print(f"  run_cells_batched: {len(cells)} cells ({len(fifo)} fifo in "
+          f"{len(cases)} batches on the card, {len(rest)} through run_cell "
+          f"on {ENGINE_WORKERS} worker processes) in {sweep_s:.3f} s "
+          f"(building included); max |diff| of the fifo records vs the CPU "
+          f"lanes {worst:.3e}")
+
+    # Every record against the numpy simulator's own ``run_cell`` on the
+    # same cell: the batched fifo records within ENGINE_TOL per job (JCT
+    # and CCT) and in makespan, the others equal but for ``wall_s``.
+    t0 = time.perf_counter()
+    worst, n_equal = 0.0, 0
+    for cell, rec in zip(cells, recs):
+        want = run_cell(cell)
+        got, ref = rec["result"], want["result"]
+        if cell.policy != "fifo":
+            if _no_wall(rec) != _no_wall(want):
+                fail(f"run_cells_batched {cell}: the record differs from "
+                     f"run_cell's")
+            n_equal += 1
+            continue
+        if set(got["jct"]) != set(ref["jct"]):
+            fail(f"run_cells_batched {cell}: jobs differ from run_cell's")
+        worst = max(worst, abs(got["makespan"] - ref["makespan"]),
+                    *(abs(got[k][n] - ref[k][n])
+                      for k in ("jct", "cct") for n in ref[k]))
+    if not worst <= BATCHED_TOL:
+        fail(f"run_cells_batched's fifo records differ from run_cell's by "
+             f"{worst:.3e} (limit {BATCHED_TOL})")
+    chaos = next(r for r in recs if "fault_intensity" in r)
+    check_s = time.perf_counter() - t0
+    print(f"  check run_cells_batched against run_cell ({check_s:.1f} s on "
+          f"the host): {len(fifo)} fifo records max |diff| "
+          f"{worst:.3e} (limit {BATCHED_TOL}) ok; {n_equal} records of "
+          f"{', '.join(ENGINE_POLICIES)} and the chaos cell (intensity "
+          f"{chaos['fault_intensity']}, {chaos['result'].get('n_faults', 0)} "
+          f"faults) equal but for wall_s ok")
 
     lanes = packed["pipe_serve", "big_switch"]
     trace = profile_serve.profile(lambda: simtorch.run_fifo_batch(
@@ -2763,6 +2875,36 @@ def phase_engine() -> list[dict]:
           f"({row['kernels_per_step']:.1f} per lockstep step) and "
           f"{trace['copies']} copies")
     return rows
+
+
+def phase_sweep() -> dict:
+    """The paper's sweep through the port's entry point
+    (``repro_torch.launch.sweep``), its ``--smoke`` profile: the mixed
+    cluster, msa, varys and fair, three quick seeds, in one process; its
+    ``check()`` (the aggregate's own gates, MSA >= varys among them) must
+    pass.  The cells run the numpy simulator on the host."""
+    from repro_torch.launch import sweep
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        doc, errs = sweep.run(["--smoke", "--workers", "1", "--no-resume",
+                               "--shard-dir", f"{d}/shards",
+                               "--out", f"{d}/smoke.json"])
+        wall = time.perf_counter() - t0
+    if errs:
+        fail(f"sweep --smoke: check() failed: {errs}")
+    head = doc["headline"]
+    r = head["ratio"]
+    print(f"  sweep --smoke: headline {head['policy']}-vs-{head['baseline']} "
+          f"avg-JCT ratio on {head['scenario']} {r['mean']!r} +/- "
+          f"{r['ci95']!r} ({r['n']} seeds), fingerprint "
+          f"{doc['fingerprint']}; check() passed; {doc['n_cells']} cells in "
+          f"{wall:.2f} s")
+    if doc["fingerprint"] != SMOKE_FINGERPRINT:
+        fail(f"sweep --smoke: fingerprint {doc['fingerprint']}, the CPU "
+             f"host's (and the reference's) {SMOKE_FINGERPRINT}")
+    return {"n_cells": doc["n_cells"], "headline_ratio": r,
+            "fingerprint": doc["fingerprint"], "wall_s": wall}
 
 
 # Serving under the layouts (phase 10): phase 5's qwen2-7b cell (full width
@@ -2912,6 +3054,7 @@ def main() -> None:
     grad = phase_grad(trains[GRAD_ARCH])
     torch.cuda.empty_cache()
     engine = phase_engine()
+    sweep = phase_sweep()
     torch.cuda.empty_cache()
     layouts = phase_layouts(trains[LAYOUT_ARCH])
     torch.cuda.empty_cache()
@@ -2937,6 +3080,7 @@ def main() -> None:
     print(json.dumps({"grad": grad}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"sweep": sweep}))
     print(json.dumps({"layouts": layouts}))
     print(json.dumps({"serve_layouts": serve_layouts}))
     print(json.dumps({"ok": True, "device": {

@@ -12,15 +12,15 @@ EP training, pipelined serving, the mixed cluster where all three share
 the fabric with MapReduce, the same mix on a 3:1-oversubscribed
 leaf-spine, and a pure FB-shaped MapReduce shuffle control);
 ``build_scenario(name, seed, quick)`` returns ``(fabric, jobs)`` with
-fresh job and fabric objects every call.  Each scenario carries a default
+fresh job and fabric objects every call (simulation mutates both), and
+strict-lints the compiled batch through ``repro_torch.analysis.lint``
+unless called with ``lint=False``.  Each scenario carries a default
 network topology in ``SCENARIO_TOPOLOGY`` (big-switch unless stated); the
 ``topology`` argument overrides it with any ``make_topology`` spec.
 
-This is the port's copy of ``repro.appdag.mixer``.  The reference's
-``build_scenario`` also strict-lints the jobs unless called with
-``lint=False``; the lint only checks and changes no job, so this copy
-drops it and returns the reference's ``lint=False`` output
-(``tests/test_torch_scenarios.py`` holds the two equal).
+This is the port's copy of ``repro.appdag.mixer``
+(``tests/test_torch_scenarios.py`` holds every scenario equal to the
+reference's).
 
 Seed discipline (DESIGN.md §12): ``build_scenario(name, seed=s, ...)``
 is a pure function of its arguments: rebuilding a cell from the same
@@ -250,14 +250,24 @@ SCENARIO_TOPOLOGY = {
 
 
 def build_scenario(name: str, seed: int = 0, quick: bool = False,
-                   topology: str | None = None
+                   topology: str | None = None, lint: bool = True
                    ) -> tuple[Fabric, list[JobDAG]]:
     """(fresh fabric, fresh jobs) for one registered scenario.
 
-    ``topology`` overrides the scenario's registered default spec."""
+    ``topology`` overrides the scenario's registered default spec.
+
+    Every compile is linted in strict mode (``repro_torch.analysis.lint``):
+    error-severity findings — cycles, self-flows, out-of-range ports —
+    raise ``LintError`` here instead of failing deep in the simulator.
+    ``lint=False`` skips it (the linter itself compiles scenarios this
+    way, and perf harnesses may opt out of the O(flows) pass)."""
     if name not in SCENARIOS:
         raise KeyError(f"unknown scenario {name!r}; known: "
                        f"{sorted(SCENARIOS)}")
     n_ports, jobs = SCENARIOS[name](seed=seed, quick=quick)
     spec = topology or SCENARIO_TOPOLOGY.get(name, "big_switch")
-    return Fabric(topology=make_topology(spec, n_ports)), jobs
+    fabric = Fabric(topology=make_topology(spec, n_ports))
+    if lint:
+        from repro_torch.analysis.lint import lint_jobs, strict
+        strict(lint_jobs(jobs, fabric.topology))
+    return fabric, jobs

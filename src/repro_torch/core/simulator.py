@@ -1,15 +1,14 @@
 """Event-driven fluid flow-level simulator over a routed link fabric.
 
-The port's copy of ``repro.core.simulator``.  Only the imports and a
-comment differ, and ``debug_checks=True`` raises ``NotImplementedError``: the
-invariant engine it calls (``repro.analysis.sanitize``) is not
-copied.  The ``tracer`` hook is duck-typed and stays.
-``tests/test_torch_comm_schedule.py`` holds its JCT, CCT and service
-order equal to the reference's.
+The port's copy of ``repro.core.simulator``: only the imports and one
+comment differ.  ``debug_checks=True`` runs the port's invariant engine
+(``repro_torch.analysis.sanitize``).  ``tests/test_torch_comm_schedule.py``
+holds its JCT, CCT and service order equal to the reference's, and
+``tests/test_torch_analysis.py`` its debug-checked runs.
 
 The paper evaluates MSA with a flow-level simulator; this is that simulator,
 generalized to multi-stage DAGs (metaflows may have producer compute tasks),
-multi-job arrival processes, and arbitrary :class:`repro.core.fabric.
+multi-job arrival processes, and arbitrary :class:`repro_torch.core.fabric.
 Topology` fabrics — every rate primitive resolves flows against the
 topology's capacitated links through a flow->links CSR incidence
 (DESIGN.md §11), with the paper's big switch as the degenerate
@@ -22,7 +21,7 @@ progresses at the machine speed.  Events: job arrival, flow/metaflow
 completion, compute completion, and fabric perturbations (straggler
 injection).
 
-Scheduling is event-driven through the ``repro.core.sched`` lifecycle:
+Scheduling is event-driven through the ``repro_torch.core.sched`` lifecycle:
 policies are ``attach``-ed once, notified of arrivals / node finishes /
 perturbations, and asked for a full ``schedule()`` only on events that
 dirty their cached structure — the paper's Algorithm-1 trigger ("metaflow
@@ -55,9 +54,10 @@ residuals), so the sequential sweep runs over distinct port pairs, not
 flows.  Decision invariants (capacity conservation, rates only on live
 flows, order coverage, work conservation) are debug-only
 (``debug_checks=True``), delegated per event to the pluggable engine in
-``repro.analysis.sanitize``.  ``repro.core.simref`` keeps the pre-compaction
-core verbatim as the equivalence and perf baseline; results are
-bit-identical (asserted exactly in tests/test_sim_core_equiv.py).
+``repro_torch.analysis.sanitize``.  The reference's ``repro.core.simref``
+keeps the pre-compaction core verbatim as the equivalence and perf
+baseline; results are bit-identical (asserted exactly in
+tests/test_sim_core_equiv.py).
 """
 
 from __future__ import annotations
@@ -727,22 +727,23 @@ class Simulator:
         self.max_events = max_events
         self.cache_decisions = cache_decisions
         self.debug_checks = debug_checks
-        # Telemetry sink (repro.obs.Tracer, a layer above the core) or
-        # None.  Mirrors the debug_checks pattern: every hook site in
+        # Telemetry sink (repro_torch.obs.Tracer, a layer above the core)
+        # or None.  Mirrors the debug_checks pattern: every hook site in
         # run() sits behind one `if tr is not None` check, so the
         # default path pays no tracing cost.
         self.tracer = tracer
         if debug_checks:
-            # The invariant engine (repro.analysis.sanitize) lives a layer
-            # above the reference's core and is not copied into the port.
-            raise NotImplementedError(
-                "debug_checks: the decision sanitizer is not ported")
+            # Deferred import: the invariant engine lives a layer above
+            # the core (repro_torch.analysis builds on repro_torch.core), so
+            # the dependency only materializes on the debug path.
+            from repro_torch.analysis.sanitize import audit_decision
+            self._audit_decision = audit_decision
         self._build_tables()
         scheduler.attach(fabric, self.jobs)
 
     def _check_fault_event(self, ev: FaultEvent) -> None:
         """Fail-fast validation (the richer structured report lives in
-        ``repro.analysis.lint.lint_faults``)."""
+        ``repro_torch.analysis.lint.lint_faults``)."""
         if ev.kind not in FAULT_KINDS:
             raise ValueError(f"unknown fault kind {ev.kind!r}")
         if not (np.isfinite(ev.time) and ev.time >= 0.0):

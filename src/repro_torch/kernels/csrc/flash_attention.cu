@@ -296,6 +296,7 @@ template <typename T>
 int launch_hd(const Params& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
     case 16: return launch<T, 16>(p, stream);
+    case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -492,6 +493,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 int launch_bf16_hd(const Params& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
     case 16: return launch_bf16<16>(p, stream);
+    case 32: return launch_bf16<32>(p, stream);
     case 64: return launch_bf16<64>(p, stream);
     case 128: return launch_bf16<128>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -92,7 +92,8 @@ __device__ __forceinline__ float quad_max(float x) {
 
 // ------------------------------------------------------- swizzled tiles
 
-// head_dim as the tiles hold it: 16 is zero-padded to one 64-column block.
+// head_dim as the tiles hold it: 16 and 32 are zero-padded to one 64-column
+// block.
 constexpr int tile_hd(int hd) { return hd < 64 ? 64 : hd; }
 
 // A [ROWS][HD] bf16 tile (HD a multiple of 64): rows of HD / 8 chunks of 16

@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 # Tiles of the bf16 kernels, as (rows per block, rows per streamed tile):
 # the forward's query rows and key tile (Bf16Fwd in csrc/flash_attention.cu);
 # the backward's dQ pass (query rows, key tile) and dK/dV pass (key rows,

@@ -206,7 +206,7 @@ def _mesh_rank(rank: int, mesh, args) -> None:
         raise RuntimeError(f"non-finite loss {losses}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b-smoke",
                     help=f"one of {ARCH_NAMES} (append -smoke for CPU)")
@@ -226,7 +226,11 @@ def main() -> None:
                     help="DATAxMODEL ranks under the FSDP x TP layout")
     ap.add_argument("--moe-ep", action="store_true",
                     help="with --mesh: the expert-parallel MoE rules")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    if args.mesh is not None and args.compress:
+        # The sharded step has no compressed gradient path (``setup``
+        # refuses the pair); refuse it here, before any rank starts.
+        ap.error("--compress does not run with --mesh")
     if args.mesh is not None:
         run_ranks(_mesh_rank, args.mesh, args.device, args)
         return

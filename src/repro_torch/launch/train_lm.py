@@ -10,9 +10,6 @@ Port of the JAX package's ``examples/train_lm.py``:
     PYTHONPATH=src python -m repro_torch.launch.train_lm --dp 4 \\
         --grad-sync msa            # four cards, NCCL
 
-``--preset tiny`` runs on the CPU only: its head_dim of 32 is not one the
-flash kernels take (16, 64, 128).
-
 Synthetic pipeline -> train step (activation checkpointing, optional
 microbatching) -> AdamW -> async checkpoints -> resume -> straggler
 detection.  ``--dp N`` starts N ranks with ``torch.multiprocessing``

@@ -5,7 +5,8 @@ policies, against the reference package, on the CPU.
 modules with the port's imports, so every simulation equals the
 reference's exactly: JCT, CCT and the metaflow service order, for every
 registered scenario at its quick size, seeds 0-2, under all five policies,
-and with a straggler and a link failure on Figure 1.
+with a straggler and a link failure on Figure 1, and under
+``debug_checks`` on Figure 1.
 ``repro_torch.core.comm_schedule.plan_step_comm`` runs on those copies;
 given the reference's TPU constants it gives the reference's plan exactly
 for every registered arch at 2, 8 and 256 chips.  Under its own H100
@@ -94,9 +95,16 @@ def test_faults_match_reference(policy):
 
 
 def test_debug_checks_are_not_ported():
-    with pytest.raises(NotImplementedError, match="sanitizer"):
-        Simulator(Fabric(n_ports=3), metaflow.figure1_jobs(),
-                  make_scheduler("msa"), debug_checks=True)
+    """The name predates the port's sanitizer: ``debug_checks=True`` now
+    runs the port's invariant engine on every decision and changes no
+    result (``tests/test_torch_analysis.py`` holds it to the reference's
+    on the scenarios)."""
+    for policy in POLICIES:
+        got = Simulator(Fabric(n_ports=3), metaflow.figure1_jobs(),
+                        make_scheduler(policy), debug_checks=True).run()
+        want = rsimulate(rmetaflow.figure1_jobs(), rmake(policy),
+                         debug_checks=True)
+        _assert_runs_equal(got, want, policy)
 
 
 @pytest.mark.parametrize("chips", [2, 8, 256])

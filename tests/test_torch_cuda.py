@@ -76,6 +76,12 @@ GPU_FLASH = [  # (B, H, KV, Sq, Sk, hd, causal, window, dtype)
     (1, 4, 2, 127, 127, 128, True, 0, "bfloat16"),
     (1, 4, 2, 129, 129, 64, True, 0, "bfloat16"),
     (1, 4, 2, 129, 300, 16, False, 0, "bfloat16"),    # Sq < Sk, non-causal
+    # head_dim 32 at launch/train_lm.py's tiny preset (batch 4, seq 64, four
+    # heads), and ragged with GQA
+    (4, 4, 4, 64, 64, 32, True, 0, "float32"),
+    (4, 4, 4, 64, 64, 32, True, 0, "bfloat16"),
+    (1, 4, 2, 200, 200, 32, True, 0, "float32"),
+    (1, 4, 2, 200, 200, 32, True, 0, "bfloat16"),
 ]
 
 
@@ -103,9 +109,9 @@ def test_cuda_flash_refuses_what_it_does_not_take(cuda):
         tfa.flash_attention(q, torch.zeros(1, 64, 4, 64, device=cuda),
                             torch.zeros(1, 64, 4, 64, device=cuda))
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(torch.zeros(1, 64, 4, 32, device=cuda),
-                            torch.zeros(1, 64, 4, 32, device=cuda),
-                            torch.zeros(1, 64, 4, 32, device=cuda))
+        tfa.flash_attention(torch.zeros(1, 64, 4, 48, device=cuda),
+                            torch.zeros(1, 64, 4, 48, device=cuda),
+                            torch.zeros(1, 64, 4, 48, device=cuda))
     with pytest.raises(ValueError, match="dtype"):
         h = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.float16)
         tfa.flash_attention(h, h, h)
@@ -342,6 +348,10 @@ GPU_FLASH_BWD = [  # (B, H, KV, S, hd, causal, window, dtype)
     (1, 4, 2, 127, 128, True, 0, "bfloat16"),
     (1, 4, 2, 129, 64, True, 0, "bfloat16"),
     (1, 4, 2, 200, 16, False, 0, "bfloat16"),     # non-causal, hd 16
+    (4, 4, 4, 64, 32, True, 0, "float32"),        # hd 32: the tiny preset
+    (4, 4, 4, 64, 32, True, 0, "bfloat16"),
+    (2, 8, 2, 200, 32, True, 0, "float32"),       # hd 32, GQA, ragged
+    (2, 8, 2, 200, 32, True, 0, "bfloat16"),
 ]
 
 
@@ -1231,8 +1241,8 @@ def test_cuda_nccl_ordered_psum_issue_order(cuda, tmp_path):
         dist.destroy_process_group()
 
 
-# The DP launcher's preset on the cards: "full" (head_dim 64); the tiny
-# preset's head_dim 32 is not one the flash kernels take.
+# The DP launcher's preset on the cards: "full" (head_dim 64), the
+# launcher's default.
 DP_CARD_PRESET = "full"
 
 

@@ -282,6 +282,19 @@ def test_cli_trains_on_a_mesh():
     assert out[-1].startswith("done:")
 
 
+def test_cli_refuses_compress_on_a_mesh(monkeypatch, capsys):
+    """``--mesh`` with ``--compress``: a usage error (exit 2) before any
+    rank starts; the sharded step has no compressed gradient path."""
+    def no_ranks(*args, **kwargs):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(train, "run_ranks", no_ranks)
+    with pytest.raises(SystemExit) as exit_:
+        train.main(["--device", "cpu", "--mesh", "2x2", "--compress"])
+    assert exit_.value.code == 2
+    assert "--compress does not run with --mesh" in capsys.readouterr().err
+
+
 def test_kernel_boundary_refuses_an_unknown_placement(sharded):
     """A placement the kernels' DTensor boundary does not know (a strided
     shard) raises on the ranks instead of running on a misread shard."""
