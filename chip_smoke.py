@@ -127,7 +127,22 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 profile through ``repro_torch.launch.sweep``, its
                 ``check()`` passed (MSA >= varys), its headline ratio and
                 fingerprint printed, the fingerprint equal to the one the
-                port and the reference give on a CPU host;
+                port and the reference give on a CPU host; then the paper's
+                figures (``repro_torch.launch.figures``, each figure's
+                ``run()`` and ``check()`` in this process after the sweep,
+                numpy on the host): Figure 1, Figure 3b (50 jobs x 3
+                DAG topologies x 2 regimes) and the framework-integration
+                table (every arch) at full size, the ML-workload table
+                and the decision-caching bench at --quick, every
+                ``check()`` passed, Figure 1 at MSA 7.000 and Varys 8.000,
+                the Figure 3b and table rows equal to the reference's
+                (recorded on a CPU host); the frozen
+                simulator (``core.simref``) equal to the live core (JCT,
+                CCT, service order) for the five policies on the randomized
+                50-job batch of the reference's equivalence test; and
+                Figure 3b's 150 trace-regime jobs (seed 42) as lanes of one
+                fifo lockstep batch on the card, each within 1e-6 of
+                ``simulate_reference`` (wall and ms per step printed);
 9. layouts   -- the per-card bytes of every architecture's train state
                 under ``state_specs`` on the production mesh's shapes
                 (data=32, model=8) and (pod=2, data=32, model=8); then
@@ -155,7 +170,7 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 beside the measured times;
 11. the ``{"serve": ...}``, ``{"train": ...}``, ``{"grad": ...}``,
    ``{"kernels": [...]}``, ``{"engine": [...]}``, ``{"sweep": ...}``,
-   ``{"layouts": ...}`` and
+   ``{"figures": ...}``, ``{"layouts": ...}`` and
    ``{"serve_layouts": ...}`` summary lines, then the ``{"ok": true, ...}``
    line.
 
@@ -321,6 +336,78 @@ BATCHED_TOL = 1e-6
 # host (tests/test_torch_experiments.py holds the two equal).
 SMOKE_FINGERPRINT = ("afc98a0d13e1c04c29eabf8e27ec929a"
                      "ddba113fbeab1388b6869d3bd1a4e52c")
+
+# The figures step of phase 8: the paper's figure harness
+# (``repro_torch.launch.figures``; numpy on the host) with Figure 1, Figure
+# 3b (50 jobs x 3 DAG topologies x 2 regimes) and the framework-integration
+# table (every arch) at full size, the ML-workload table and the
+# decision-caching bench at --quick.  The Figure 3b and comm_overlap
+# ``derived`` strings are the reference's (``benchmarks/run.py --only ...``
+# on a CPU host); tests/test_torch_figures.py holds the port's rows equal to
+# the reference's at quick size.
+FIGURE_RUNS = (("fig1_motivation", False), ("fig3_topologies", False),
+               ("comm_overlap", False), ("ml_workloads", True),
+               ("sched_micro", True))
+FIG1_AVG_JCT = {"fig1/msa": "avg_jct=7.000;", "fig1/varys": "avg_jct=8.000;"}
+FIG3_DERIVED = {
+    "fig3/trace/total_order":
+        ("msa=1970.77;varys=2076.49;fair=2038.80;varys_over_msa=1.054;"
+         "fair_over_msa=1.035"),
+    "fig3/trace/partial_order":
+        ("msa=1741.09;varys=1795.18;fair=1778.06;varys_over_msa=1.031;"
+         "fair_over_msa=1.021"),
+    "fig3/trace/disorder":
+        ("msa=1642.93;varys=1640.86;fair=1644.86;varys_over_msa=0.999;"
+         "fair_over_msa=1.001"),
+    "fig3/fanout/total_order":
+        ("msa=280.25;varys=403.60;fair=371.94;varys_over_msa=1.440;"
+         "fair_over_msa=1.327"),
+    "fig3/fanout/partial_order":
+        ("msa=259.56;varys=315.77;fair=302.90;varys_over_msa=1.217;"
+         "fair_over_msa=1.167"),
+    "fig3/fanout/disorder":
+        ("msa=269.67;varys=264.21;fair=269.83;varys_over_msa=0.980;"
+         "fair_over_msa=1.001"),
+}
+COMM_OVERLAP_DERIVED = {
+    "comm_overlap/mixtral-8x22b":
+        ("msa_s=4.8358;varys_s=4.8358;fifo_s=4.8358;flat_s=4.8574;"
+         "flat_over_msa=1.004;overlap=0.982;bucket_mb=19.56"),
+    "comm_overlap/llama4-maverick-400b-a17b":
+        ("msa_s=1.1381;varys_s=1.1381;fifo_s=1.1381;flat_s=1.2568;"
+         "flat_over_msa=1.104;overlap=0.979;bucket_mb=126.33"),
+    "comm_overlap/llama3-405b":
+        ("msa_s=50.1074;varys_s=50.1074;fifo_s=50.1074;flat_s=50.1697;"
+         "flat_over_msa=1.001;overlap=0.992;bucket_mb=24.90"),
+    "comm_overlap/qwen2-7b":
+        ("msa_s=0.8141;varys_s=0.8141;fifo_s=0.8141;flat_s=0.8151;"
+         "flat_over_msa=1.001;overlap=0.964;bucket_mb=1.82"),
+    "comm_overlap/qwen1.5-4b":
+        ("msa_s=0.3958;varys_s=0.3958;fifo_s=0.3958;flat_s=0.3963;"
+         "flat_over_msa=1.001;overlap=0.975;bucket_mb=0.62"),
+    "comm_overlap/deepseek-coder-33b":
+        ("msa_s=4.1021;varys_s=4.1021;fifo_s=4.1021;flat_s=4.1071;"
+         "flat_over_msa=1.001;overlap=0.984;bucket_mb=4.14"),
+    "comm_overlap/mamba2-370m":
+        ("msa_s=0.0395;varys_s=0.0395;fifo_s=0.0395;flat_s=0.0396;"
+         "flat_over_msa=1.001;overlap=0.979;bucket_mb=0.05"),
+    "comm_overlap/llava-next-34b":
+        ("msa_s=4.1758;varys_s=4.1758;fifo_s=4.1758;flat_s=4.1809;"
+         "flat_over_msa=1.001;overlap=0.983;bucket_mb=4.36"),
+    "comm_overlap/jamba-1.5-large-398b":
+        ("msa_s=11.5166;varys_s=11.5166;fifo_s=11.5166;flat_s=11.5717;"
+         "flat_over_msa=1.005;overlap=0.889;bucket_mb=344.30"),
+}
+# The frozen simulator against the live core, every policy, on the
+# randomized batch of the reference's tests/test_sim_core_equiv.py
+# (``workload.synth_shared_batch``: 50 jobs, seed 11, 32 ports).
+SIMREF_POLICIES = ("msa", "varys", "fifo", "fair", "cpath")
+SIMREF_BATCH = (50, 11, 32)
+# The engine on the card against the frozen simulator: Figure 3b's
+# trace-regime jobs (seed 42, 50 per DAG topology), one lane each on a big
+# switch sized to the job, all in one lockstep batch.
+FIG3_ENGINE_JOBS = 50
+FIG3_ENGINE_SEED = 42
 
 
 def fail(msg: str) -> None:
@@ -2907,6 +2994,117 @@ def phase_sweep() -> dict:
             "fingerprint": doc["fingerprint"], "wall_s": wall}
 
 
+def phase_figures(smi: str) -> dict:
+    """The paper's figures on the port (phase 8, after the sweep, with
+    nothing running beside it): (a) the figure harness's figures at the
+    paper's size (``FIGURE_RUNS``; each module's ``run()`` and ``check()``,
+    as ``python -m repro_torch.launch.figures --only NAME`` calls them),
+    their rows held to the reference's; (b) the frozen simulator
+    (``core.simref``) against the live core for every policy; (c) the
+    lockstep fifo engine on the card against the frozen simulator on
+    Figure 3b's jobs.  (a) and (b) run numpy on the host."""
+    from repro_torch.core import (Fabric, make_scheduler, simtorch, simulate,
+                                  simulate_reference)
+    from repro_torch.core.workload import (TOPOLOGIES, synth_fb_jobs,
+                                           synth_shared_batch)
+    from repro_torch.launch.figures.run import BENCHES
+
+    print("  figures: the paper's figure harness (repro_torch.launch.figures"
+          "; each figure's run() and check() in this process; numpy on the "
+          "host)")
+    runs, derived = {}, {}
+    for only, quick in FIGURE_RUNS:
+        mod = BENCHES[only]
+        t0 = time.perf_counter()
+        rows = mod.run(quick=quick)
+        host_s = time.perf_counter() - t0
+        for r in rows:
+            print(f"    {r[0]},{r[1]:.1f},{r[2]}")
+        errs = mod.check(rows)
+        if errs:
+            fail(f"figures {only}{' --quick' if quick else ''}: check() "
+                 f"failed: {errs}")
+        runs[only] = {"quick": quick, "rows": len(rows), "host_s": host_s}
+        derived[only] = {r[0]: r[2] for r in rows}
+        print(f"  {only}{' --quick' if quick else ''}: {len(rows)} rows, "
+              f"check() passed, {host_s:.2f} s on the host")
+    for name, want in FIG1_AVG_JCT.items():
+        if not derived["fig1_motivation"][name].startswith(want):
+            fail(f"{name}: {derived['fig1_motivation'][name]}, the paper's "
+                 f"{want}")
+    for only, want in (("fig3_topologies", FIG3_DERIVED),
+                       ("comm_overlap", COMM_OVERLAP_DERIVED)):
+        bad = sorted(n for n in set(want) | set(derived[only])
+                     if derived[only].get(n) != want.get(n))
+        if bad:
+            fail(f"{only}: rows {bad} differ from the reference's "
+                 f"(CPU host)")
+    print(f"  fig1 MSA {FIG1_AVG_JCT['fig1/msa'].rstrip(';')}, Varys "
+          f"{FIG1_AVG_JCT['fig1/varys'].rstrip(';')}; the "
+          f"{len(FIG3_DERIVED)} Figure 3b and {len(COMM_OVERLAP_DERIVED)} "
+          f"comm_overlap rows equal the reference's")
+
+    n_jobs, seed, n_ports = SIMREF_BATCH
+    t0 = time.perf_counter()
+    for pname in SIMREF_POLICIES:
+        live = simulate(synth_shared_batch(*SIMREF_BATCH),
+                        make_scheduler(pname), n_ports=n_ports)
+        old = simulate_reference(synth_shared_batch(*SIMREF_BATCH),
+                                 make_scheduler(pname), n_ports=n_ports)
+        for key in ("jct", "cct", "mf_service_order"):
+            if getattr(live, key) != getattr(old, key):
+                fail(f"simref {pname}: {key} differs from the live core's")
+    simref_s = time.perf_counter() - t0
+    print(f"  simulate_reference == Simulator (JCT, CCT, service order) on "
+          f"{n_jobs} jobs (seed {seed}, {n_ports} ports) for "
+          f"{', '.join(SIMREF_POLICIES)}: {simref_s:.2f} s on the host")
+
+    lanes, want = [], []
+    for topo in TOPOLOGIES:
+        for job, twin in zip(synth_fb_jobs(FIG3_ENGINE_JOBS, topo,
+                                           seed=FIG3_ENGINE_SEED),
+                             synth_fb_jobs(FIG3_ENGINE_JOBS, topo,
+                                           seed=FIG3_ENGINE_SEED)):
+            ports = max(job.ports_used(), default=0) + 1
+            lanes.append(simtorch.pack_instance(Fabric(n_ports=ports), [job]))
+            want.append(simulate_reference([twin], make_scheduler("fifo"),
+                                           fabric=Fabric(n_ports=ports)))
+    # One run: the engine is eager torch (nothing to compile), and phase 8's
+    # batches before it have warmed the card's allocator and kernels.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = simtorch.run_fifo_batch(
+        lanes, steps_per_sync=ENGINE_STEPS_PER_SYNC, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    worst = max(max([abs(a.jct[n] - b.jct[n]) for n in b.jct]
+                    + [abs(a.cct[n] - b.cct[n]) for n in b.cct])
+                for a, b in zip(card, want))
+    if not worst <= ENGINE_TOL:
+        fail(f"engine on Figure 3b's jobs: lanes differ from "
+             f"simulate_reference by {worst:.3e} > {ENGINE_TOL:g}")
+    events = max(r.events for r in card)
+    steps = -(-events // ENGINE_STEPS_PER_SYNC) * ENGINE_STEPS_PER_SYNC
+    engine = {"lanes": len(lanes),
+              "flows_padded": max(p.flow_node.size for p in lanes),
+              "max_lane_events": events, "steps_run": steps,
+              "card_s": wall, "card_ms_per_step": 1e3 * wall / steps,
+              "max_abs_diff_vs_simref": worst}
+    print(f"  engine: Figure 3b's {len(lanes)} trace-regime jobs (seed "
+          f"{FIG3_ENGINE_SEED}) as lanes of one batch, "
+          f"{engine['flows_padded']} flows padded, {events} events ({steps} "
+          f"steps); card {wall:.3f} s ({engine['card_ms_per_step']:.3f} "
+          f"ms/step) on {smi}; max "
+          f"|diff| vs simulate_reference {worst:.3e} (limit {ENGINE_TOL:g})")
+    return {"harness": runs, "fig1": {n: derived["fig1_motivation"][n]
+                                      for n in FIG1_AVG_JCT},
+            "fig3": derived["fig3_topologies"],
+            "simref_vs_simulator": {"policies": list(SIMREF_POLICIES),
+                                    "jobs": n_jobs, "seed": seed,
+                                    "ports": n_ports, "host_s": simref_s},
+            "engine": engine, "device": smi}
+
+
 # Serving under the layouts (phase 10): phase 5's qwen2-7b cell (full width
 # and depth, bf16, batch 4, prompt 512, 32 tokens) through
 # ``launch.serve.generate`` on a (data=1, model=1) NCCL mesh.  At world 1
@@ -3035,7 +3233,7 @@ def phase_serve_layouts(plain: dict) -> dict:
 
 
 def main() -> None:
-    phase_device()
+    smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
@@ -3055,6 +3253,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     engine = phase_engine()
     sweep = phase_sweep()
+    figures = phase_figures(smi)
     torch.cuda.empty_cache()
     layouts = phase_layouts(trains[LAYOUT_ARCH])
     torch.cuda.empty_cache()
@@ -3081,6 +3280,7 @@ def main() -> None:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"sweep": sweep}))
+    print(json.dumps({"figures": figures}))
     print(json.dumps({"layouts": layouts}))
     print(json.dumps({"serve_layouts": serve_layouts}))
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,14 @@ class LoweredCollective:
     size: float                     # logical buffer size (per participant)
     rounds: tuple[Round, ...]
 
+    @property
+    def total_bytes(self) -> float:
+        return sum(s for r in self.rounds for (_, _, s) in r)
+
+    @property
+    def n_flows(self) -> int:
+        return sum(len(r) for r in self.rounds)
+
 
 def _check(kind: str, ranks: tuple[int, ...], size: float,
            algorithm: str) -> None:

@@ -1,13 +1,19 @@
 """Workload synthesis: Facebook-like coflows and the paper's DAG topologies.
 
-The port's copy of what the scenario builder takes from
-``repro.core.workload``: the FB2010-shaped coflow sampler and
-``build_job``.  The reference's trace reader is left out (it reads a file
-the repo does not hold).
+The port's copy of ``repro.core.workload``.  The paper replays coflows
+from the public Facebook trace (coflow-benchmark ``FB2010-1Hr-150-0.txt``)
+and, because the trace carries no DAG information, synthesizes a DAG per
+job in three topologies (Fig. 3a): *total order* (chain), *partial order*
+(tree-like) and *disorder* (hard barrier).
 
 ``synth_fb_coflow`` samples coflows from the published shape of the FB
 trace (most coflows are narrow and small; a heavy tail of wide, large
-coflows carries most bytes).
+coflows carries most bytes); ``synth_fb_jobs`` turns them into the
+paper's single-job scenarios, drawing from one ``random.Random`` in the
+reference's order, so the same seed gives the same jobs.
+``load_fb_trace`` parses the real coflow-benchmark format when a file is
+available.  ``tests/test_torch_simref.py`` holds all three equal to the
+reference's.
 """
 
 from __future__ import annotations
@@ -52,6 +58,39 @@ def synth_fb_coflow(rng: random.Random, name: str) -> tuple[int, int, list[list[
     sizes = [[_fb_flow_size(rng) * red_skew[j] for j in range(r)]
              for _ in range(m)]
     return m, r, sizes
+
+
+def load_fb_trace(path: str, limit: int | None = None
+                  ) -> list[tuple[int, int, list[list[float]]]]:
+    """Parse the public coflow-benchmark trace format.
+
+    Line format: ``<id> <arrival_ms> <#mappers> <mapper locs...> <#reducers>
+    <reducer:MB ...>``; header line: ``<num_ports> <num_coflows>``.
+    Per-reducer bytes are split evenly across mappers (the benchmark's own
+    convention for simulators without mapper-level detail).
+    """
+    coflows = []
+    with open(path) as fh:
+        header = fh.readline().split()
+        _ = header
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            k = 2
+            n_map = int(parts[k]); k += 1
+            k += n_map  # mapper locations (unused: we re-map ports per job)
+            n_red = int(parts[k]); k += 1
+            red_sizes = []
+            for i in range(n_red):
+                _, mb = parts[k + i].split(":")
+                red_sizes.append(float(mb))
+            sizes = [[red_sizes[r] / n_map for r in range(n_red)]
+                     for _ in range(n_map)]
+            coflows.append((n_map, n_red, sizes))
+            if limit and len(coflows) >= limit:
+                break
+    return coflows
 
 
 # DAG topologies (paper Fig. 3a).  One metaflow per reducer task; compute
@@ -115,3 +154,55 @@ def build_job(name: str, n_map: int, n_red: int, sizes: list[list[float]],
                      deps=deps)
     job.validate()
     return job
+
+
+def synth_fb_jobs(n_jobs: int, topology: str, seed: int = 0,
+                  compute_ratio: float = 1.0, compute_mode: str = "balanced",
+                  min_reducers: int = 2,
+                  coflows: list[tuple[int, int, list[list[float]]]] | None = None
+                  ) -> list[JobDAG]:
+    """``n_jobs`` independent single-job scenarios (the paper's evaluation
+    randomly selects 50 jobs and averages their single-job JCTs).
+
+    ``min_reducers`` defaults to 2: single-reducer jobs have a single
+    metaflow = a single coflow, so every scheduler is identical on them by
+    construction; the paper's DAG generation presupposes multi-task jobs.
+    Set to 1 to include them (dilutes all ratios toward 1.0 uniformly).
+    """
+    rng = random.Random(seed)
+    jobs = []
+    while len(jobs) < n_jobs:
+        i = len(jobs)
+        if coflows is not None:
+            m, r, sizes = coflows[i % len(coflows)]
+        else:
+            m, r, sizes = synth_fb_coflow(rng, f"job{i}")
+            if r < min_reducers:
+                continue
+        jobs.append(build_job(f"job{i}", m, r, sizes, topology, rng,
+                              compute_ratio=compute_ratio,
+                              compute_mode=compute_mode))
+    return jobs
+
+
+def synth_shared_batch(n_jobs: int = 50, seed: int = 11, n_ports: int = 32
+                       ) -> list[JobDAG]:
+    """``n_jobs`` FB-shaped coflows sharing one ``n_ports`` fabric: the DAG
+    topologies in turn, random contiguous placement, staggered arrivals
+    (exponential gaps, mean 30).  Enough contention that priorities,
+    backfill and the blocked backlog are all exercised.  The defaults give
+    the randomized batch of the reference's ``tests/test_sim_core_equiv.py``,
+    on which the frozen and the live cores are held equal."""
+    rng = random.Random(seed)
+    jobs = []
+    arrival = 0.0
+    while len(jobs) < n_jobs:
+        m, r, sizes = synth_fb_coflow(rng, "")
+        if r < 2 or m + r > n_ports // 2:
+            continue
+        base = rng.randrange(0, n_ports - (m + r) + 1)
+        jobs.append(build_job(f"j{len(jobs)}", m, r, sizes,
+                              TOPOLOGIES[len(jobs) % 3], rng,
+                              arrival=arrival, port_base=base))
+        arrival += rng.expovariate(1.0 / 30.0)
+    return jobs

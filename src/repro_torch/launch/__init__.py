@@ -1,1 +1,2 @@
-"""Entry points of the port (serving, training, profiling)."""
+"""Entry points of the port (serving, training, profiling, the sweeps and
+the paper's figures)."""

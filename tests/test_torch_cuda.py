@@ -1165,6 +1165,34 @@ def test_cuda_engine_lanes_match_cpu(cuda, scenario, topology):
             assert max(abs(x[n] - y[n]) for n in y) <= 1e-6
 
 
+
+@pytest.mark.cuda
+def test_cuda_engine_fig3_lanes_match_simref(cuda):
+    """Figure 3b's trace-regime jobs (seed 42, 12 per DAG topology), each
+    one lane on a big switch sized to the job, all in one batch on the
+    card: per-job JCT and CCT within 1e-6 of the frozen simulator
+    (``simulate_reference`` under fifo), as ``chip_smoke.py`` phase 8
+    holds the full 150."""
+    from repro_torch.core import Fabric, make_scheduler, simulate_reference
+    from repro_torch.core.simtorch import pack_instance, run_fifo_batch
+    from repro_torch.core.workload import TOPOLOGIES, synth_fb_jobs
+
+    lanes, want = [], []
+    for topo in TOPOLOGIES:
+        for job, twin in zip(synth_fb_jobs(12, topo, seed=42),
+                             synth_fb_jobs(12, topo, seed=42)):
+            ports = max(job.ports_used()) + 1
+            lanes.append(pack_instance(Fabric(n_ports=ports), [job]))
+            want.append(simulate_reference([twin], make_scheduler("fifo"),
+                                           fabric=Fabric(n_ports=ports)))
+    on_card = run_fifo_batch(lanes, device=cuda)
+    assert len({p.flow_node.size for p in lanes}) > 1     # padded lanes
+    for a, b in zip(on_card, want):
+        for key in ("jct", "cct"):
+            x, y = getattr(a, key), getattr(b, key)
+            assert set(x) == set(y)
+            assert max(abs(x[n] - y[n]) for n in y) <= 1e-6
+
 # ------------------------------------------------- the gradient path
 
 def _compression_tree(dtype: str, seed: int = 0) -> tuple[dict, dict]:
