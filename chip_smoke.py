@@ -1811,14 +1811,14 @@ def _expected_launches(cfg, steps: int) -> dict[str, int]:
 
     if cfg.family == "encdec":
         E, L = cfg.n_enc_layers, cfg.n_layers
-        return {**dict.fromkeys(ops.KERNELS, 0),
+        return {**dict.fromkeys(ops.COUNTERS, 0),
                 "flash_attention": E + 2 * L + L * steps,
                 "rmsnorm": 2 * E + 1 + (3 * L + 1) * (1 + steps)}
     layout, U = unit_layout(cfg), n_units(cfg)
     n_attn = U * sum(s["mixer"] == "attn" for s in layout)
     n_mamba = U * sum(s["mixer"] == "mamba" for s in layout)
     n_ffn = U * sum(bool(s["ffn"]) for s in layout)
-    return {**dict.fromkeys(ops.KERNELS, 0),
+    return {**dict.fromkeys(ops.COUNTERS, 0),
             "flash_attention": n_attn,
             "rmsnorm": (cfg.n_layers + n_ffn + n_mamba + 1) * (1 + steps),
             "ssd_scan": n_mamba * SSD_LAUNCHES_PER_CALL}
@@ -1839,7 +1839,7 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
 
     if cfg.family == "encdec":
         E, L = cfg.n_enc_layers, cfg.n_layers
-        per_step = {**dict.fromkeys(ops.KERNELS, 0),
+        per_step = {**dict.fromkeys(ops.COUNTERS, 0),
                     "flash_attention": E + 4 * L,
                     "flash_attention_bwd": E + 2 * L,
                     "rmsnorm": 2 * E + 1 + 6 * L + 1,
@@ -1850,7 +1850,7 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
     n_attn = U * sum(s["mixer"] == "attn" for s in layout)
     n_mamba = U * sum(s["mixer"] == "mamba" for s in layout)
     n_norms = cfg.n_layers + U * sum(bool(s["ffn"]) for s in layout) + n_mamba
-    per_step = {**dict.fromkeys(ops.KERNELS, 0),
+    per_step = {**dict.fromkeys(ops.COUNTERS, 0),
                 "flash_attention": 2 * n_attn,
                 "flash_attention_bwd": n_attn,
                 "ssd_scan": 2 * n_mamba * SSD_LAUNCHES_PER_CALL,

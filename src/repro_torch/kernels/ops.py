@@ -39,6 +39,7 @@ from repro_torch.kernels import fused_ce as _ce
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch import spans as _spans
 from repro_torch.parallel.axes import is_dtensor
 
 #: Launch counter of each kernel: name -> (module, attribute).
@@ -52,6 +53,10 @@ KERNELS = {
     "fused_cross_entropy": (_ce, "launches"),
     "fused_cross_entropy_bwd": (_ce, "bwd_launches"),
 }
+#: The names ``launch_counts`` returns: the kernels', then the MoE counters
+#: of ``repro_torch.spans`` (counted only while a profiler session is
+#: active).
+COUNTERS = (*KERNELS, *_spans.COUNTERS)
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -308,10 +313,15 @@ def _ssd_dtensor(x, dt, A, Bm, Cm, chunk: int, initial_state):
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per kernel since the last reset."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
+    """Every counter of ``COUNTERS`` since the last reset: each kernel's
+    launches, and the MoE's kept pairs and buffer rows (reading the kept
+    pairs waits for the device)."""
+    return {**{name: getattr(mod, attr)
+               for name, (mod, attr) in KERNELS.items()}, **_spans.counts()}
 
 
 def reset_launch_counts() -> None:
+    """Zero every counter of ``COUNTERS``."""
     for mod, attr in KERNELS.values():
         setattr(mod, attr, 0)
+    _spans.reset_counts()

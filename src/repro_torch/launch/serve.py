@@ -50,6 +50,7 @@ from repro_torch.launch.mesh import parse_mesh, run_ranks
 from repro_torch.models import get_model
 from repro_torch.models.registry import Model
 from repro_torch.parallel import axes as ax
+from repro_torch.spans import span
 from repro_torch.tree import leaves
 
 
@@ -93,7 +94,9 @@ def generate(model: Model, params, batch: dict, gen: int) -> dict:
 
     Returns the tokens [B, gen], the last logits, a device flag that every
     step's logits were finite, and host-clock seconds for prefill and for
-    the decode loop, each ending in a synchronize.
+    the decode loop, each ending in a synchronize.  Under a profiler each
+    decode step runs in an ``rt.serve.decode_step`` span
+    (``repro_torch.spans``).
 
     DTensor parameters (``init_params``, ``distribute_params``) run under
     their mesh's ``sharding_rules``: the batch is laid out by
@@ -126,10 +129,11 @@ def _generate(model: Model, params, batch: dict, gen: int) -> dict:
     out = [token]
     t0 = time.perf_counter()
     for _ in range(gen - 1):
-        logits, cache = model.decode(params, token, cache)
-        logits = ax.full(logits)
-        token = logits.argmax(-1, keepdim=True)
-        finite &= torch.isfinite(logits).all()
+        with span("rt.serve.decode_step"):
+            logits, cache = model.decode(params, token, cache)
+            logits = ax.full(logits)
+            token = logits.argmax(-1, keepdim=True)
+            finite &= torch.isfinite(logits).all()
         out.append(token)
     _sync(device)
     return {"tokens": torch.cat(out, dim=1), "logits": logits,

@@ -5,7 +5,8 @@ runs its chunked SSD scan through ``ops.ssd_scan`` (the CUDA kernel on the
 card, the model's chunked plain scan on the CPU) and its gated norm through
 ``ops.rmsnorm``.  Decode keeps an O(1) recurrent state (conv tail + SSM
 state) and steps it in plain torch, as the JAX package does outside any
-Pallas kernel; only its gated norm is a kernel.
+Pallas kernel; only its gated norm is a kernel.  Under a profiler both run
+in an ``rt.mamba`` span (``repro_torch.spans``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init
 from repro_torch.parallel import axes as ax
+from repro_torch.spans import span
 
 #: Leaves the JAX init keeps in float32 whatever the model's dtype.
 FP32_PARAMS = ("A_log", "D", "dt_bias")
@@ -74,6 +76,11 @@ def _causal_conv(xBC, w, b, state_tail=None):
 
 def mamba_forward(p, u, cfg: ModelConfig, state: MambaState | None = None):
     """Full-sequence mixer: u [B, S, D] -> (y [B, S, D], final MambaState)."""
+    with span("rt.mamba"):
+        return _forward(p, u, cfg, state)
+
+
+def _forward(p, u, cfg: ModelConfig, state: MambaState | None):
     B, S, _ = u.shape
     d_in, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = u @ p["in_proj"]
@@ -131,8 +138,13 @@ def mamba_decode(p, u, cfg: ModelConfig, state: MambaState):
     none of them over ``model``; the unit's FSDP gather joined them) and
     the state is split by batch rows, so the step runs on each rank's rows
     of u and of the state (``_decode_local``)."""
-    if ax.is_dtensor(u):
-        return _decode_local(p, u, cfg, state)
+    with span("rt.mamba"):
+        if ax.is_dtensor(u):
+            return _decode_local(p, u, cfg, state)
+        return _decode(p, u, cfg, state)
+
+
+def _decode(p, u, cfg: ModelConfig, state: MambaState):
     B = u.shape[0]
     d_in, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = u @ p["in_proj"]
@@ -162,9 +174,8 @@ def mamba_decode(p, u, cfg: ModelConfig, state: MambaState):
 def _decode_local(p, u, cfg: ModelConfig, state: MambaState):
     u = ax.shard(u, ax.BATCH, None, None)
     state = state_placed(state)
-    y, new = mamba_decode({k: ax.full(w) for k, w in p.items()},
-                          ax.local(u), cfg,
-                          state._replace(conv=ax.local(state.conv),
-                                         ssm=ax.local(state.ssm)))
+    y, new = _decode({k: ax.full(w) for k, w in p.items()}, ax.local(u), cfg,
+                     state._replace(conv=ax.local(state.conv),
+                                    ssm=ax.local(state.ssm)))
     return ax.like(y, u), new._replace(conv=ax.like(new.conv, state.conv),
                                        ssm=ax.like(new.ssm, state.ssm))

@@ -20,6 +20,10 @@ the buffer's expert axis is sharded over ``model`` (the buffer goes
 ``Replicate`` -> ``Shard(E)`` for the products -> ``Replicate`` for the
 combine, where XLA uses all-to-alls), else each expert's hidden dimension
 is (TP within the expert).
+
+Under a profiler ``moe_ffn`` runs its parts in the spans ``rt.moe.route``,
+``rt.moe.dispatch``, ``rt.moe.experts`` and ``rt.moe.combine``, and counts
+its kept pairs and buffer rows (``repro_torch.spans``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
 from repro_torch.parallel import axes as ax
+from repro_torch.spans import count_moe, span
 
 #: Leaves the JAX init keeps in float32 whatever the config's dtype.
 FP32_PARAMS = ("router",)
@@ -112,38 +117,43 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig):
     """
     B, S, D = x.shape
     E, C = cfg.n_experts, capacity(cfg, S)
-    logits = x.float() @ p["router"]
-    # This rank's rows (all of them off a mesh).
-    xl = ax.local(x)
-    r = route(ax.local(ax.shard(logits, ax.BATCH, None, None)), cfg)
+    with span("rt.moe.route"):
+        logits = x.float() @ p["router"]
+        # This rank's rows (all of them off a mesh).
+        xl = ax.local(x)
+        r = route(ax.local(ax.shard(logits, ax.BATCH, None, None)), cfg)
     b = xl.shape[0]
+    count_moe(r.keep, b * E * C)
 
     def rows(t: torch.Tensor) -> torch.Tensor:          # [B, T] -> [B, T, D]
         return t[..., None].expand(-1, -1, D)
 
-    x_src = xl.gather(1, rows(r.tok))
-    # Kept pairs have distinct rows; dropped ones all land on the extra
-    # row E*C, which is cut off.
-    buf = xl.new_zeros(b, E * C + 1, D).scatter(1, rows(r.dest), x_src)
-    buf = ax.like(buf[:, :E * C].reshape(b, E, C, D), x)
-    spec_e = ax.EP if cfg.moe_ep else None
-    buf = ax.shard(buf, ax.BATCH, spec_e, None, None)
-    w_gate, w_up, w_down = (p[n].to(x.dtype) for n in ("w_gate", "w_up",
-                                                       "w_down"))
-    h = (F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
-         * torch.einsum("becd,edf->becf", buf, w_up))
-    if not cfg.moe_ep:
-        h = ax.shard(h, ax.BATCH, None, None, ax.TP)
-    out = torch.einsum("becf,efd->becd", h, w_down)
-    out = ax.shard(out, ax.BATCH, spec_e, None, None)
-    out = ax.local(ax.shard(out, ax.BATCH, None, None, None))
-    out = F.pad(out.reshape(b, E * C, D), (0, 0, 0, 1))  # the drop row: 0
-    w = (r.prob * r.keep).to(x.dtype)[..., None]
-    # Each token receives k <= 2 terms into a zeroed row, and a + b == b + a
-    # in floating point, so the card's atomic adds give the same sum in any
-    # order: the result is deterministic.
-    y = xl.new_zeros(b, S, D).scatter_add(1, rows(r.tok),
-                                          out.gather(1, rows(r.dest)) * w)
+    with span("rt.moe.dispatch"):
+        x_src = xl.gather(1, rows(r.tok))
+        # Kept pairs have distinct rows; dropped ones all land on the extra
+        # row E*C, which is cut off.
+        buf = xl.new_zeros(b, E * C + 1, D).scatter(1, rows(r.dest), x_src)
+        buf = ax.like(buf[:, :E * C].reshape(b, E, C, D), x)
+        spec_e = ax.EP if cfg.moe_ep else None
+        buf = ax.shard(buf, ax.BATCH, spec_e, None, None)
+    with span("rt.moe.experts"):
+        w_gate, w_up, w_down = (p[n].to(x.dtype) for n in ("w_gate", "w_up",
+                                                           "w_down"))
+        h = (F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
+             * torch.einsum("becd,edf->becf", buf, w_up))
+        if not cfg.moe_ep:
+            h = ax.shard(h, ax.BATCH, None, None, ax.TP)
+        out = torch.einsum("becf,efd->becd", h, w_down)
+        out = ax.shard(out, ax.BATCH, spec_e, None, None)
+        out = ax.local(ax.shard(out, ax.BATCH, None, None, None))
+    with span("rt.moe.combine"):
+        out = F.pad(out.reshape(b, E * C, D), (0, 0, 0, 1))  # drop row: 0
+        w = (r.prob * r.keep).to(x.dtype)[..., None]
+        # Each token receives k <= 2 terms into a zeroed row, and a + b ==
+        # b + a in floating point, so the card's atomic adds give the same
+        # sum in any order: the result is deterministic.
+        y = xl.new_zeros(b, S, D).scatter_add(1, rows(r.tok),
+                                              out.gather(1, rows(r.dest)) * w)
     return ax.like(y, x), logits
 
 

@@ -16,7 +16,9 @@ through ``ops.ssd_scan`` (the CUDA kernels on the card; the train path's
 scans too) and the train loss through ``ops.fused_cross_entropy``
 (Triton); on the card the train path's gradients come from their backward
 kernels.  The MoE FFN (``moe.moe_ffn``) and the Mamba mixer's conv, gates
-and skip are plain torch, as the JAX package computes them.
+and skip are plain torch, as the JAX package computes them.  Under a
+profiler each unit's attention runs in an ``rt.attention`` span
+(``repro_torch.spans``).
 
 On a mesh (DTensor parameters, ``parallel.sharding``) the train and
 serving paths carry the reference's activation annotations
@@ -45,6 +47,7 @@ from repro_torch.models.common import cdtype, dense_init, embed_init
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, load_balancing_loss, moe_ffn
 from repro_torch.parallel import axes as ax
+from repro_torch.spans import span
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -177,7 +180,9 @@ def _apply_unit_train(h, up, cfg: ModelConfig):
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         if sub["mixer"] == "attn":
-            h = h + attn.attend_train(sp["attn"], x, cfg)
+            with span("rt.attention"):
+                y = attn.attend_train(sp["attn"], x, cfg)
+            h = h + y
         else:
             h = h + mb.mamba_forward(sp["mamba"], x, cfg)[0]
         if sub["ffn"]:
@@ -278,8 +283,9 @@ def _apply_unit_prefill(h, up, cfg: ModelConfig, max_seq: int,
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         if sub["mixer"] == "attn":
-            y, kv = attn.attend_prefill(sp["attn"], x, cfg, max_seq,
-                                        context_parallel)
+            with span("rt.attention"):
+                y, kv = attn.attend_prefill(sp["attn"], x, cfg, max_seq,
+                                            context_parallel)
             kvs.append(kv)
         else:
             y, st = mb.mamba_forward(sp["mamba"], x, cfg)
@@ -320,8 +326,9 @@ def _apply_unit_decode(h, up, cache: LayerCache, cfg: ModelConfig,
         sp = up[f"sub{j}"]
         x = ops.rmsnorm(h, sp["mixer_norm"], cfg.norm_eps)
         if sub["mixer"] == "attn":
-            y, kv = attn.attend_decode(sp["attn"], x, cache.kv[len(kvs)], cfg,
-                                       context_parallel)
+            with span("rt.attention"):
+                y, kv = attn.attend_decode(sp["attn"], x, cache.kv[len(kvs)],
+                                           cfg, context_parallel)
             kvs.append(kv)
         else:
             y, st = mb.mamba_decode(sp["mamba"], x, cfg, cache.ssm[len(ssms)])

@@ -5,14 +5,21 @@ slice):
   * auto-resume from the latest committed checkpoint (crash / preemption),
   * SIGTERM/SIGINT -> checkpoint-then-exit (preemption notice handling),
   * periodic async checkpoints (I/O overlapped with training),
-  * straggler detection: per-step wall-time EWMA; a step slower than
-    ``straggler_factor`` times the EWMA is flagged in the report.
+  * straggler detection: a step slower than ``straggler_factor`` times
+    the median wall time of the run's previous ``STRAGGLER_WINDOW`` steps
+    is flagged in the report.  The first step of a run (after a start or a
+    resume) is left out: it warms up kernels, caches and the allocator,
+    and can take many times a steady step.  A median, unlike a running
+    mean, forgets a few slow steps (a busy host at start-up, a flagged
+    straggler) as soon as they are fewer than half its window.
 """
 
 from __future__ import annotations
 
 import signal
+import statistics
 import time
+from collections import deque
 from collections.abc import Callable
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -20,6 +27,9 @@ from typing import Any
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.train.state import TrainState
+
+#: The previous steps whose median wall time a step is compared with.
+STRAGGLER_WINDOW = 8
 
 
 @dataclass
@@ -29,8 +39,7 @@ class LoopConfig:
     ckpt_dir: str = "checkpoints"
     log_every: int = 10
     keep: int = 3
-    ewma_alpha: float = 0.1
-    straggler_factor: float = 2.5   # step > factor * ewma -> flagged
+    straggler_factor: float = 2.5   # step > factor * median -> flagged
     # False on every data-parallel rank but the first: the ranks hold equal
     # states, one writes them and every rank resumes from what it wrote.
     write_checkpoints: bool = True
@@ -69,21 +78,22 @@ def run(train_step: Callable, init_state: Callable[[], TrainState],
         prev_term = signal.signal(signal.SIGTERM, _handler)
         prev_int = signal.signal(signal.SIGINT, _handler)
 
-    ewma = None
+    recent: deque[float] = deque(maxlen=STRAGGLER_WINDOW)
     try:
         step = int(state.step)
         while step < cfg.total_steps:
-            t0 = time.time()
+            t0 = time.perf_counter()
             state, metrics = train_step(state, batch_at(step))
             loss = float(metrics["loss"])   # waits for the step
-            dt = time.time() - t0
+            dt = time.perf_counter() - t0
 
-            # Straggler detection (EWMA of step wall time).
-            if ewma is None:
-                ewma = dt
-            elif dt > cfg.straggler_factor * ewma:
-                report.straggler_steps.append(step)
-            ewma = (1 - cfg.ewma_alpha) * ewma + cfg.ewma_alpha * dt
+            # Straggler detection, from the run's second step: the first
+            # is the warm-up.
+            if report.steps_run > 0:
+                if recent and dt > cfg.straggler_factor * statistics.median(
+                        recent):
+                    report.straggler_steps.append(step)
+                recent.append(dt)
 
             step += 1
             report.steps_run += 1

@@ -6,7 +6,8 @@ metrics)``.  ``torch.autograd.grad`` of the model's loss replaces
 backward kernels (``kernels/ops.py``).  ``grad_transform`` is the hook for
 explicit gradient paths (collectives, compression), applied before the
 optimizer as in JAX.  The optimizer updates the parameters in place, so the
-state passed in is consumed.
+state passed in is consumed.  Under a profiler the forward and the backward
+each run in a span (``repro_torch.spans``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamW
+from repro_torch.spans import span
 from repro_torch.train.state import TrainState
 from repro_torch.tree import leaves, unflatten
 
@@ -41,8 +43,10 @@ def make_train_step(model: Model, optimizer: AdamW,
     """
 
     def grads_of(params, batch):
-        loss, parts = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves(params))
+        with span("rt.train.forward"):
+            loss, parts = model.loss(params, batch)
+        with span("rt.train.backward"):
+            grads = torch.autograd.grad(loss, leaves(params))
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
