@@ -53,7 +53,13 @@ Run from a checkout of the repository; it needs one CUDA card and nvcc
                 dscale bit-equal across two calls; last, the flash forward
                 and backward at head_dim 32 (``launch/train_lm.py``'s tiny
                 preset: B4 S64 H4, causal), float32 and bf16, timed beside
-                their bounds;
+                their bounds; then AdamW's three kernels at mixtral-8x22b's
+                1-layer and mamba2-370m's leaf sets: the global norm
+                against a float64 sum, the step against the plain loop (m
+                and v bit-equal with the clip off, p within a step of bf16,
+                four of float32; mamba2's set whole, mixtral's a leaf at a
+                time), timed beside the plain loop,
+                ``torch.optim.AdamW(fused=True)`` and the bound;
 4. reference -- small float32 models served on the card (kernels) against
                 the same models on the CPU (plain versions): equal greedy
                 tokens, logits within 1e-3 (dense qwen2, mixtral with a
@@ -312,6 +318,13 @@ TRAINS = (("qwen2-7b", 8, TRAIN_BATCH, TRAIN_SEQ, None),
           ("mamba2-370m", 48, 4, TRAIN_SEQ, None))
 # Copies of a timed kernel's inputs: four prefill-sized sets exceed the L2.
 COPIES = {"prefill": 4, "decode": 1}
+# AdamW's update in phase 3, at the train cells' leaf sets: (arch, layers).
+# mixtral-8x22b's one layer is 2.90 B parameters (34.8 GB of state): two
+# more copies of it for the check against the plain loop do not fit beside
+# it, so that check runs a leaf at a time there (each at its own size, the
+# expert leaves' fp32 moments 3.2 GB), and on mamba2's whole leaf set.
+ADAMW_ROWS = (("mixtral-8x22b", 1), ("mamba2-370m", 48))
+ADAMW_WHOLE_SET = 1e9   # parameters up to which the check takes the whole set
 L2_BYTES = 50e6   # H100 SXM; timed backward copies hold at least twice it
 # The engine phase: the batched-bench setup of the repo's simulator-core
 # benchmark (every registered scenario at full size, 20 seeds as one batch),
@@ -1735,6 +1748,137 @@ def _family_rows(entries: list[dict]) -> None:
             f"{name} train ", (Bt, St, D), bf16, g, eps, True)
 
 
+def _adamw_check(label: str, opt, params, state, grads, decay) -> dict:
+    """The kernels' step against the plain loop's from the same state, the
+    clip off (the scale 1 on both), each on its own copy of the leaves: m
+    and v bit-equal, p within ``kernels/adamw.py``'s ``P_STEPS``.  The
+    whole leaf set at once up to ``ADAMW_WHOLE_SET`` parameters, else a
+    leaf at a time (a tree of that leaf alone, its decay flag kept)."""
+    from repro_torch.kernels import adamw as tadamw
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.tree import leaves, leaves_with_path
+
+    opt = dataclasses.replace(opt, clip_norm=1e30)
+    pairs = leaves_with_path(params)
+    flags = [decay(path, p) for path, p in pairs]
+    ps, ms, vs = [p for _, p in pairs], leaves(state.m), leaves(state.v)
+    gs = leaves(grads)
+    n = sum(p.numel() for p in ps)
+    sets = ([list(range(len(ps)))] if n <= ADAMW_WHOLE_SET
+            else [[i] for i in range(len(ps))])
+    equal, differ, total, worst = True, 0, 0, {}
+    for idx in sets:
+        def copy(ts):
+            return [ts[i].clone() for i in idx]
+
+        def sub_decay(path, p):
+            return flags[idx[path[0]]]
+        kp, pp = copy(ps), copy(ps)
+        ks = AdamWState(state.step, copy(ms), copy(vs))
+        pls = AdamWState(state.step, copy(ms), copy(vs))
+        g = [gs[i] for i in idx]
+        _, ks, _ = opt.update(g, ks, kp, sub_decay)
+        _, pls, _ = opt.plain_update(g, pls, pp, sub_decay)
+        equal &= all(torch.equal(a, b) for a, b in
+                     zip(ks.m + ks.v, pls.m + pls.v))
+        del ks, pls
+        d, t, w = tadamw.p_gap(kp, pp, [ps[i] for i in idx])
+        differ, total = differ + d, total + t
+        for dt, (steps, leaf, at) in w.items():
+            if steps >= worst.get(dt, (-1.0,))[0]:
+                worst[dt] = (steps, idx[leaf], at)
+        del kp, pp
+        torch.cuda.empty_cache()
+    ok = equal and all(w <= tadamw.P_STEPS[dt]
+                       for dt, (w, *_) in worst.items())
+    how = ("the whole set" if len(sets) == 1
+           else f"{len(sets)} leaves, each alone")
+    print(f"  check {label} against the plain loop ({how}): m and v "
+          f"bit-equal {equal}; p: {differ} of {total} elements differ "
+          f"({differ / total:.2e}), the widest by " + ", ".join(
+              f"{w:g} steps ({str(dt)[6:]}, limit {tadamw.P_STEPS[dt]}, "
+              f"leaf {'.'.join(map(str, pairs[leaf][0]))}[{at}])"
+              for dt, (w, leaf, at) in worst.items())
+          + f" {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{label} disagrees with the plain loop")
+    return {"checked": how, "p_share_differing": differ / total,
+            "p_widest_steps": {str(dt)[6:]: w
+                               for dt, (w, *_) in worst.items()}}
+
+
+def _adamw_row(arch: str, layers: int) -> dict:
+    """The AdamW kernels on ``arch``'s train state cut to ``layers`` layers,
+    seeded gradients: the global norm against a float64 sum, the check
+    against the plain loop (``_adamw_check``), then the kernels, the
+    plain loop and ``torch.optim.AdamW(fused=True)`` (a yardstick the port
+    never calls; its moments in the parameters' dtype, so 14 bytes a bf16
+    parameter) timed beside the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    t = train.setup(cfg, steps=4, batch=1, seq=16, seed=SEED, device="cuda")
+    state = t.init()
+    params, opt, decay = state.params, t.optimizer, t.model.decays
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = tree_map(lambda p: (1e-3 * torch.randn(
+        p.shape, generator=g, device="cuda")).to(p.dtype), params)
+    flat = leaves(params)
+    n = sum(p.numel() for p in flat)
+    label = (f"adamw {cfg.name} {layers} layers ({n / 1e9:.3f} B "
+             f"parameters, {len(flat)} leaves)")
+    # g read twice, p read and written, m and v read and written in fp32.
+    b_ms, b_by = bound(sum(p.numel() * (4 * p.element_size() + 16)
+                           for p in flat), 0, FP32_FLOPS)
+    row = {"arch": cfg.name, "layers": layers, "params_b": n / 1e9,
+           "leaves": len(flat), "bound_ms": b_ms, "bound_by": b_by}
+    _, _, m = opt.update(grads, state.opt, params, decay)
+    want = math.sqrt(sum(float(x.double().square().sum())
+                         for x in leaves(grads)))
+    row["grad_norm_rel_err"] = abs(float(m["grad_norm"]) - want) / want
+    print(f"  check {label}: global norm {float(m['grad_norm'])!r} against "
+          f"a float64 sum {want!r}: relative error "
+          f"{row['grad_norm_rel_err']:.2e} "
+          f"{'ok' if row['grad_norm_rel_err'] <= 1e-6 else 'MISMATCH'}")
+    if row["grad_norm_rel_err"] > 1e-6:
+        fail(f"{label}: global norm off")
+    row.update(_adamw_check(label, opt, params, state.opt, grads, decay))
+
+    def kernels():
+        opt.update(grads, state.opt, params, decay)
+
+    def plain():
+        opt.plain_update(grads, state.opt, params, decay)
+
+    row["ms"] = time_ms(kernels, [()], iters=10, warmup=2)
+    row["call_ms"] = time_ms(kernels, [()], iters=10, warmup=2,
+                             device_only=False)
+    row["plain_ms"] = time_ms(plain, [()], iters=3, warmup=1)
+    fused_params = [torch.nn.Parameter(p) for p in flat]
+    for p, gp in zip(fused_params, leaves(grads)):
+        p.grad = gp
+    fused = torch.optim.AdamW(fused_params, lr=1e-4, fused=True)
+    row["library_ms"] = time_ms(fused.step, [()], iters=10, warmup=2)
+    del fused, fused_params
+    print(f"  time {label}: kernels {row['ms']:.2f} ms (per call from the "
+          f"host {row['call_ms']:.2f} ms), plain {row['plain_ms']:.2f} ms, "
+          f"torch.optim.AdamW(fused=True) {row['library_ms']:.2f} ms, bound "
+          f"{b_ms:.2f} ms ({b_by}): {100 * b_ms / row['ms']:.1f}% of it")
+    return row
+
+
+def _adamw_entry() -> dict:
+    entry = {"name": "adamw", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/adamw.cu",
+             "replaces": "none: src/repro/optim/adamw.py is plain jnp"}
+    for arch, layers in ADAMW_ROWS:
+        entry[arch] = _adamw_row(arch, layers)
+        torch.cuda.empty_cache()
+    return entry
+
+
 def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
     from repro_torch.configs import get_config
 
@@ -1753,6 +1897,8 @@ def phase_kernels(cfg, built: dict[str, dict]) -> list[dict]:
                                               for k in SSD_BWD_TC_KERNELS}
     entries = [fwd, bwd, _rmsnorm_entry(cfg), _rmsnorm_bwd_entry(cfg), ssd,
                ssd_bwd, *_ce_entries(cfg)]
+    torch.cuda.empty_cache()
+    entries.append(_adamw_entry())
     torch.cuda.empty_cache()
     moe_cfg = get_config("mixtral-8x22b")
     for name, c in _checks_at(moe_cfg).items():
@@ -1824,12 +1970,14 @@ def _expected_launches(cfg, steps: int) -> dict[str, int]:
             "ssd_scan": n_mamba * SSD_LAUNCHES_PER_CALL}
 
 
-def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
+def _expected_train_launches(cfg, steps: int,
+                             optimizer: bool = True) -> dict[str, int]:
     """Launches of ``steps`` train steps under per-unit activation
     checkpointing: each layer's flash attention or SSD scan and its norms
     (a Mamba mixer's gated norm too) run twice forward (the pass and the
     backward's recompute) and once backward, the final norm and the
-    cross-entropy once each way.  The
+    cross-entropy once each way; with ``optimizer``, AdamW's three kernels
+    a step.  The
     encoder-decoder checkpoints its decoder layers only: the encoder's
     attention and norms (and its final norm) run once each way, the
     decoder's two attentions and three norms twice forward and once
@@ -1844,7 +1992,8 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
                     "flash_attention_bwd": E + 2 * L,
                     "rmsnorm": 2 * E + 1 + 6 * L + 1,
                     "rmsnorm_bwd": 2 * E + 1 + 3 * L + 1,
-                    "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
+                    "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1,
+                    "adamw": 3 * optimizer}
         return {k: v * steps for k, v in per_step.items()}
     layout, U = unit_layout(cfg), n_units(cfg)
     n_attn = U * sum(s["mixer"] == "attn" for s in layout)
@@ -1856,7 +2005,8 @@ def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
                 "ssd_scan": 2 * n_mamba * SSD_LAUNCHES_PER_CALL,
                 "ssd_scan_bwd": n_mamba,
                 "rmsnorm": 2 * n_norms + 1, "rmsnorm_bwd": n_norms + 1,
-                "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
+                "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1,
+                "adamw": 3 * optimizer}
     return {k: v * steps for k, v in per_step.items()}
 
 
@@ -1968,7 +2118,8 @@ def _reference_train() -> None:
         g_cpu = _loss_grads(t_cpu.model, s_cpu.params, batch, "cpu")
         ops.reset_launch_counts()
         g_gpu = _loss_grads(t_gpu.model, s_gpu.params, batch, "cuda")
-        counts, want = ops.launch_counts(), _expected_train_launches(cfg, 1)
+        counts = ops.launch_counts()
+        want = _expected_train_launches(cfg, 1, optimizer=False)
         if counts != want:
             fail(f"{label}: launches of one backward {counts}, expected {want}")
         # The worst leaf (relative error, path) and the count of leaves
@@ -2283,8 +2434,8 @@ def phase_train(arch: str, layers: int, batch: int, seq: int,
         losses.append(float(m["loss"]))
 
     trace = profile_serve.profile(traced_step)
-    # The optimizer alone (per-leaf fp32 updates in plain torch), on zero
-    # gradients, after the measured steps.
+    # The optimizer alone (the AdamW kernels), on zero gradients, after the
+    # measured steps.
     grads = tree_map(torch.zeros_like, state.params)
     adamw_ms = time_ms(lambda: t.optimizer.update(
         grads, state.opt, state.params, t.model.decays), [()], iters=2,

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
-           "ssd_scan_bwd", "rmsnorm")
+           "ssd_scan_bwd", "rmsnorm", "adamw")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

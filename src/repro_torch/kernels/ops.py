@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ce as _ce
 from repro_torch.kernels import ref
@@ -52,6 +53,7 @@ KERNELS = {
     "ssd_scan_bwd": (_ssd, "bwd_launches"),
     "fused_cross_entropy": (_ce, "launches"),
     "fused_cross_entropy_bwd": (_ce, "bwd_launches"),
+    "adamw": (_adamw, "launches"),
 }
 #: The names ``launch_counts`` returns: the kernels', then the MoE counters
 #: of ``repro_torch.spans`` (counted only while a profiler session is

@@ -10,6 +10,13 @@ parameters passed to ``update`` are the ones it returns, modified.
 JAX decays the leaves of rank >= 2.  Which leaves those are depends on the
 model's tree layout, so ``update`` takes the model's ``decay`` predicate
 (``Model.decays``) and applies JAX's rule only where it is given none.
+
+CUDA leaves go to the multi-tensor kernels (``kernels/adamw.py``: the
+global norm and the update of every leaf in three launches, the same
+arithmetic in JAX's order), under a ``rt.train.optimizer`` span; CPU leaves
+to the per-leaf loop below, the plain version.  DTensor leaves on the card
+run the kernels on their local shards, each leaf's sum of squares summed
+over the mesh dimensions where it is sharded.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import adamw as _kernels
+from repro_torch.parallel.axes import is_dtensor
+from repro_torch.spans import span
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 
@@ -65,21 +75,40 @@ class AdamW:
                                                   device=x.device), t)
         return AdamWState(step=0, m=zeros(params), v=zeros(params))
 
+    def _bias_and_lr(self, step: int) -> tuple[float, float, float]:
+        """1 - b1**step, 1 - b2**step (float32, as in JAX) and the LR."""
+        f32 = np.float32
+        return (float(f32(1) - f32(self.b1) ** f32(step)),
+                float(f32(1) - f32(self.b2) ** f32(step)), self.lr(step))
+
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params,
                decay: Callable[[tuple, torch.Tensor], bool] = _matrices
                ) -> tuple[Any, AdamWState, dict]:
         """One step; ``decay(path, p)`` says whether the leaf at ``path``
-        takes the decoupled weight decay."""
+        takes the decoupled weight decay.  CUDA leaves go to the kernels,
+        CPU leaves to :meth:`plain_update`."""
+        pairs = leaves_with_path(params)
+        if not pairs or pairs[0][1].device.type != "cuda":
+            return self.plain_update(grads, state, params, decay)
+        step = state.step + 1
+        b1c, b2c, lr = self._bias_and_lr(step)
+        with span("rt.train.optimizer"):
+            gnorm = self._kernel_update(pairs, leaves(grads), leaves(state.m),
+                                        leaves(state.v), decay, b1c, b2c, lr)
+        return params, AdamWState(step=step, m=state.m, v=state.v), {
+            "grad_norm": gnorm, "lr": lr}
+
+    @torch.no_grad()
+    def plain_update(self, grads, state: AdamWState, params,
+                     decay: Callable[[tuple, torch.Tensor], bool] = _matrices
+                     ) -> tuple[Any, AdamWState, dict]:
+        """:meth:`update` as the plain version: a leaf at a time in eager
+        torch, on any device."""
+        step = state.step + 1
+        b1c, b2c, lr = self._bias_and_lr(step)
         gnorm = global_norm(grads)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-
-        step = state.step + 1
-        f32 = np.float32
-        b1c = float(f32(1) - f32(self.b1) ** f32(step))
-        b2c = float(f32(1) - f32(self.b2) ** f32(step))
-        lr = self.lr(step)
-
         for (path, p), g, mu, nu in zip(leaves_with_path(params),
                                         leaves(grads), leaves(state.m),
                                         leaves(state.v)):
@@ -94,6 +123,30 @@ class AdamW:
             p.add_(upd.mul_(-lr).to(p.dtype))
         metrics = {"grad_norm": gnorm, "lr": lr}
         return params, AdamWState(step=step, m=state.m, v=state.v), metrics
+
+    def _kernel_update(self, pairs, grads, ms, vs, decay, b1c: float,
+                       b2c: float, lr: float) -> torch.Tensor:
+        """The kernels' step on CUDA leaves (local shards of DTensors)."""
+        params = [p for _, p in pairs]
+        sum_over = None
+        if is_dtensor(params[0]):
+            for p, g, m, v in zip(params, grads, ms, vs):
+                if not (g.placements == m.placements == v.placements
+                        == p.placements):
+                    raise ValueError(
+                        f"AdamW: gradient and moments placed as "
+                        f"{g.placements}, {m.placements}, {v.placements}, "
+                        f"their parameter as {p.placements}")
+            sum_over = [tuple(p.device_mesh.get_group(i)
+                              for i, pl in enumerate(p.placements)
+                              if pl.is_shard()) for p in params]
+            params, grads, ms, vs = ([t.to_local() for t in ts]
+                                     for ts in (params, grads, ms, vs))
+        return _kernels.step(
+            params, grads, ms, vs, [decay(path, p) for path, p in pairs],
+            b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay, clip_norm=self.clip_norm,
+            b1c=b1c, b2c=b2c, lr=lr, sum_over=sum_over)
 
 
 def global_norm(tree) -> torch.Tensor:

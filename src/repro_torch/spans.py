@@ -13,6 +13,9 @@ The spans (all named ``rt.*``) and what reads them:
                         ``train/step.py``: ``model.loss``; autograd's
                         backward, each checkpointed unit's recompute
                         included
+  rt.train.optimizer    ``optim/adamw.py``: ``AdamW.update`` on CUDA
+                        leaves (the gradient pointers' copy and the three
+                        AdamW kernels); the CPU's plain loop records none
   rt.serve.decode_step  ``launch/serve.py``: one decode step (the model's
                         step, the argmax and the finite flag)
   rt.attention          ``models/transformer.py``: a unit's attention

@@ -18,6 +18,8 @@ below.  The bf16 SSD kernels split each fp32
 operand into a hi and a lo bf16 product; the tolerances stay those above.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1193,6 +1195,262 @@ def test_cuda_engine_fig3_lanes_match_simref(cuda):
             assert set(x) == set(y)
             assert max(abs(x[n] - y[n]) for n in y) <= 1e-6
 
+# ------------------------------------------------- the multi-tensor AdamW
+
+# Leaf sets: (numel, dtype, decayed) per leaf.  Odd sizes (one element, a
+# ragged vector, a ragged chunk), bf16 and float32 leaves mixed as mixtral's
+# float32 router and mamba2's float32 A_log, D and dt_bias are; the last set
+# holds a leaf whose fp32 moment passes 2**31 bytes.
+ADAMW_SETS = {
+    "odd": [(1, "float32", False), (7, "bfloat16", True),
+            (8191, "bfloat16", False), (65537, "bfloat16", True),
+            (3 * 65536 + 5, "float32", True), (1000, "float32", False)],
+    "many_small": [(n, "bfloat16" if n % 2 else "float32", n % 3 == 0)
+                   for n in range(1, 300, 7)],
+    "past_2gb": [(5, "float32", False), (2**29 + 7, "bfloat16", True),
+                 (8, "bfloat16", False)],
+}
+ADAMW_STEPS = 3
+
+
+def _adamw_leaves(spec, seed: int, device) -> tuple[dict, list, dict]:
+    """Parameters (a tree), their decay flags by path, and a function of the
+    step that gives seeded gradients of each leaf's dtype."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = {f"leaf{i:03d}": (torch.randn(n, generator=g, device=device)
+                               * 0.05).to(getattr(torch, dt))
+              for i, (n, dt, _) in enumerate(spec)}
+    decays = {f"leaf{i:03d}": d for i, (_, _, d) in enumerate(spec)}
+
+    def grads(step: int) -> dict:
+        gg = torch.Generator(device=device).manual_seed(seed + 1 + step)
+        return {k: (torch.randn(p.shape, generator=gg, device=device)
+                    * 10.0 ** float(torch.randint(-4, 1, (), generator=gg,
+                                                  device=device))
+                    ).to(p.dtype) for k, p in params.items()}
+    return params, decays, grads
+
+
+def _adamw_setup(spec, clip: float, cuda):
+    from repro_torch.optim.adamw import AdamW
+
+    opt = AdamW(peak_lr=3e-3, warmup_steps=1, total_steps=10,
+                clip_norm=clip)
+    params, decays, grads = _adamw_leaves(spec, 7, cuda)
+
+    def decay(path, p):
+        return decays[path[0]]
+    return opt, decay, grads, params, opt.init(params)
+
+
+def _adamw_twin(params, state):
+    """A copy of the parameters and the state, for the plain loop to step
+    from where the kernels' chain stands."""
+    from repro_torch.optim.adamw import AdamWState
+
+    def copy(tree):
+        return {k: t.clone() for k, t in tree.items()}
+    return copy(params), AdamWState(state.step, copy(state.m), copy(state.v))
+
+
+def _assert_p_close(label, kparams, pparams, before, atol: float = 0.0):
+    """p within ``kernels/adamw.py``'s ``P_STEPS`` of the plain loop's, or
+    within ``atol``; prints the share of elements that differ and the
+    widest difference of each dtype."""
+    from repro_torch.kernels import adamw as tadamw
+
+    keys = list(kparams)
+    differ, total, worst = tadamw.p_gap(
+        [kparams[k] for k in keys], [pparams[k] for k in keys],
+        [before[k] for k in keys], atol)
+
+    def where(leaf, i):
+        k = keys[leaf]
+        return (f"{k}[{i}]: kernel {float(kparams[k][i])!r} plain "
+                f"{float(pparams[k][i])!r} before {float(before[k][i])!r}")
+    print(f"{label}: {differ} of {total} parameter elements differ "
+          f"({differ / total:.2e}); widest " + "; ".join(
+              f"{str(dt)[6:]} {w:g} steps ({where(leaf, i)})"
+              for dt, (w, leaf, i) in worst.items()))
+    for dt, (w, leaf, i) in worst.items():
+        assert w <= tadamw.P_STEPS[dt], where(leaf, i)
+
+
+def _assert_adamw_equal(label, kernel_state, plain_state, kparams, pparams,
+                        before):
+    """m and v bit-equal, p within ``P_STEPS``."""
+    for k in kparams:
+        for name, a, b in (("m", kernel_state.m[k], plain_state.m[k]),
+                           ("v", kernel_state.v[k], plain_state.v[k])):
+            assert torch.equal(a, b), f"{label} {k} {name}"
+    _assert_p_close(label, kparams, pparams, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_set", list(ADAMW_SETS))
+def test_cuda_adamw_matches_the_plain_loop(cuda, leaf_set):
+    """The kernels against the plain loop on the card, the scale fixed at 1
+    (no clipping): each of three chained steps of the kernels leaves m and
+    v bit-equal to the plain loop's step from the same state, and p within
+    ``P_STEPS``; three launches a step, and a float32 global norm within
+    1e-6 of a float64 sum."""
+    spec = ADAMW_SETS[leaf_set]
+    opt, decay, grads, kp, ks = _adamw_setup(spec, 1e30, cuda)
+    steps = 1 if leaf_set == "past_2gb" else ADAMW_STEPS
+    for step in range(steps):
+        g = grads(step)
+        pp, ps = _adamw_twin(kp, ks)
+        before = {k: p.clone() for k, p in kp.items()}
+        ops.reset_launch_counts()
+        kp, ks, km = opt.update(g, ks, kp, decay)
+        assert ops.launch_counts()["adamw"] == 3
+        pp, ps, pm = opt.plain_update(g, ps, pp, decay)
+        assert ops.launch_counts()["adamw"] == 3
+        want = math.sqrt(sum(float(x.double().square().sum())
+                             for x in g.values()))
+        assert abs(float(km["grad_norm"]) - want) <= 1e-6 * want
+        assert km["lr"] == pm["lr"] and ks.step == ps.step == step + 1
+        _assert_adamw_equal(f"adamw {leaf_set} step {step}", ks, ps, kp, pp,
+                            before)
+        del pp, ps, before
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_clips_as_the_plain_loop(cuda):
+    """Clipping on (norms of 1e2 to 1e4 against a clip of 1): the scale
+    comes from a norm summed in another order, one float32 step off at
+    most, so each step's m and v lie within 1e-6 of the plain loop's
+    (relative, or of the leaf's largest entry where m's two terms cancel),
+    and p within ``P_STEPS`` or within 1e-6 x lr (where m's terms cancel,
+    u moves by ~1e-7 of their size; a float32 p adds it unrounded)."""
+    opt, decay, grads, kp, ks = _adamw_setup(ADAMW_SETS["odd"], 1.0, cuda)
+    for step in range(ADAMW_STEPS):
+        g = {k: (x.float() * 1e3).to(x.dtype) for k, x in grads(step).items()}
+        pp, ps = _adamw_twin(kp, ks)
+        before = {k: p.clone() for k, p in kp.items()}
+        kp, ks, km = opt.update(g, ks, kp, decay)
+        pp, ps, pm = opt.plain_update(g, ps, pp, decay)
+        gk, gp = float(km["grad_norm"]), float(pm["grad_norm"])
+        assert gk > 1 and abs(gk - gp) <= 1e-6 * gp
+        for k in kp:
+            for a, b in ((ks.m[k], ps.m[k]), (ks.v[k], ps.v[k])):
+                torch.testing.assert_close(
+                    a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+        _assert_p_close(f"adamw clipped step {step}", kp, pp, before,
+                        atol=1e-6 * km["lr"])
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_takes_strided_grads_and_refuses_what_it_cannot(cuda):
+    """A strided gradient is copied and gives the contiguous one's step;
+    a float32 parameter with a bf16 gradient, bf16 moments, a strided
+    parameter and a float16 parameter raise before any launch."""
+    from repro_torch.kernels import adamw as tadamw
+    from repro_torch.optim.adamw import AdamW
+
+    opt = AdamW(warmup_steps=1)
+    p = torch.randn(64, 48, device=cuda)
+    g = torch.randn(48, 64, device=cuda).t()          # strided, p's shape
+    a, b = {"w": p.clone()}, {"w": p.clone()}
+    a, sa, _ = opt.update({"w": g}, opt.init(a), a)
+    b, sb, _ = opt.update({"w": g.contiguous()}, opt.init(b), b)
+    assert torch.equal(a["w"], b["w"]) and torch.equal(sa.v["w"], sb.v["w"])
+
+    m = torch.zeros(64, 48, device=cuda)
+    ops.reset_launch_counts()
+    for params, grads, moment in (
+            ([p], [g.contiguous().bfloat16()], m),
+            ([p], [g.contiguous()], m.bfloat16()),
+            ([p.t()], [g.t()], m.t().contiguous()),
+            ([p.half()], [g.contiguous().half()], m)):
+        with pytest.raises(ValueError):
+            tadamw.step(params, grads, [moment], [moment], [True], b1=0.9,
+                        b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0,
+                        b1c=0.1, b2c=0.05, lr=1e-3)
+    assert ops.launch_counts()["adamw"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_runs_under_its_span(cuda, tmp_path):
+    """Under the profiler the three kernels and the gradient pointers' copy
+    are launched inside ``rt.train.optimizer`` (each device event tied by
+    its correlation id to its launch, as the benchmark's trace reader ties
+    them); a train step through ``launch.train.setup`` counts three
+    launches."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    t = train.setup(get_config("mamba2-370m-smoke"), steps=4, batch=2,
+                    seq=32, seed=0, device=cuda)
+    state = t.init()
+    state, _ = t.train_step(state, t.pipeline.batch_at(0))
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = t.train_step(state, t.pipeline.batch_at(1))
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["adamw"] == 3
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e["name"] == "rt.train.optimizer"]
+    assert len(spans) == 1
+    launch_at = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    inside = [e["name"] for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and spans[0][0] <= launch_at.get(e["args"]["correlation"], -1)
+              <= spans[0][1]]
+    for k in ("adamw_sumsq_kernel", "adamw_finish_kernel",
+              "adamw_update_kernel", "Memcpy HtoD"):
+        assert sum(k in n for n in inside) == 1, (k, inside)
+    assert len(inside) == 4, inside
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_on_four_cards_matches_one_card(cuda, tmp_path):
+    """The kernels on the local shards of a (2, 2) NCCL mesh
+    (``tests/test_torch_adamw.py::sharded_adamw_rank``: the mixtral smoke's
+    state as DTensors, replicated leaves and leaves sharded over one mesh
+    dimension and over two, seeded gradients, the clip off): each leaf's
+    sum of squares all-reduced where it is sharded gives the one-card
+    kernels' norm within 1e-6, and the gathered parameters and moments
+    equal the one-card kernels' step bit for bit."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import dataclasses
+
+    from test_torch_adamw import SHARD_ARCH, _seeded_grads, run_sharded_adamw
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves, unflatten
+
+    got = run_sharded_adamw(str(tmp_path), "cuda")
+    assert {(), (0,), (0, 1)} <= set(got["dims"])
+    t = train.setup(get_config(SHARD_ARCH), steps=4, batch=2, seq=16,
+                    seed=0, device=cuda)
+    state = t.init()
+    grads = unflatten(state.params, _seeded_grads(state.params, cuda))
+    opt = dataclasses.replace(t.optimizer, clip_norm=1e30)
+    ops.reset_launch_counts()
+    params, st, m = opt.update(grads, state.opt, state.params,
+                               t.model.decays)
+    assert ops.launch_counts()["adamw"] == 3
+    print(f"norm on four cards {got['gnorm']!r}, on one "
+          f"{float(m['grad_norm'])!r}")
+    assert abs(got["gnorm"] - float(m["grad_norm"])) <= 1e-6 * got["gnorm"]
+    for a, b in zip(got["full"], leaves((params, st.m, st.v))):
+        assert torch.equal(a, b.cpu())
+
+
 # ------------------------------------------------- the gradient path
 
 def _compression_tree(dtype: str, seed: int = 0) -> tuple[dict, dict]:
@@ -1233,6 +1491,20 @@ def test_cuda_compression_bit_equal_to_cpu(cuda, dtype):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
     assert float(mc["ef_residual_sq"]) == pytest.approx(
         float(mh["ef_residual_sq"]), rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_compression_scale_divides_as_the_cpu(cuda):
+    """The int8 scale, max|x| / 127, on the card equals the CPU's (and so
+    JAX's) at every maximum: the card divides a tensor by a Python number
+    as a product with its rounded reciprocal, one float32 step off the
+    quotient for ~5% of maxima, so the scale divides by a tensor."""
+    from repro_torch.parallel.compression import _scale
+
+    rng = np.random.default_rng(4)
+    amax = torch.from_numpy(np.abs(_normal(3, 100_000))
+                            * 10.0 ** rng.uniform(-6, 2, 100_000)).float()
+    assert torch.equal(_scale(amax.to(cuda)).cpu(), _scale(amax))
 
 
 @pytest.mark.cuda
