@@ -5,13 +5,19 @@ the 700 W limit).  The counts are frozen copies of ``chip_smoke.py``'s
 (``bound``, ``_flash_pairs``, ``_ssd_flops``, ``_ssd_bwd_flops``,
 ``_train_model_flops``), rewritten on the benchmark's own configuration
 files and leaf list: a later change to the port cannot move them.
+
+A kernel's counts (``flash_*``, ``ssd_*``) are shared by every
+architecture that calls it.  The model-level counts (``train_flops``,
+``prefill_flops``, ``decode_bytes``) take an architecture's leaf list and
+its number of sub-layers of each mixer kind (``{"attn": n, "mamba": n}``),
+as its architecture module states them (``spec.Architecture``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from benchlib.weights import Leaf, leaves, mixer
+from benchlib.weights import Leaf
 
 PEAK_BF16_FLOPS = 989e12     # dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12    # HBM3
@@ -90,15 +96,12 @@ def ssd_bytes(B: int, S: int, H: int, P: int, N: int, backward: bool) -> int:
     return x + bc + dt + 4 * H + x + 4 * B * H * P * N
 
 
-def _n_mixers(cfg: dict, kind: str) -> int:
-    return cfg["n_layers"] if mixer(cfg) == kind else 0
-
-
 def _is_expert(leaf: Leaf) -> bool:
     return "moe" in leaf.path and leaf.path[-1] != "router"
 
 
-def train_flops(cfg: dict, B: int, S: int) -> float:
+def train_flops(cfg: dict, leaves: list[Leaf], mixers: dict, B: int,
+                S: int) -> float:
     """Model FLOPs of one train step on [B, S] tokens: 6 per active
     parameter per token (the LM head, or the tied embedding, on every
     token; of a MoE layer's experts the k of E each token is routed to;
@@ -108,17 +111,17 @@ def train_flops(cfg: dict, B: int, S: int) -> float:
     k_of_e = cfg.get("experts_per_token", 0) / max(cfg.get("n_experts", 0), 1)
     tied = cfg.get("tie_embeddings", False)
     total = 0.0
-    for leaf in leaves(cfg):
+    for leaf in leaves:
         n = float(np.prod(leaf.shape))
         if leaf.path == ("embed",) and not tied:
             continue
         total += 6 * n * B * S * (k_of_e if _is_expert(leaf) else 1.0)
-    if _n_mixers(cfg, "attn"):
-        total += 3 * _n_mixers(cfg, "attn") * 4 * B * cfg["n_heads"] * (
+    if mixers["attn"]:
+        total += 3 * mixers["attn"] * 4 * B * cfg["n_heads"] * (
             cfg["head_dim"] * flash_pairs(S, S, True,
                                           cfg.get("sliding_window", 0)))
-    if _n_mixers(cfg, "mamba"):
-        total += 3 * _n_mixers(cfg, "mamba") * ssd_flops(B, S, *_ssd_dims(cfg))
+    if mixers["mamba"]:
+        total += 3 * mixers["mamba"] * ssd_flops(B, S, *_ssd_dims(cfg))
     return total
 
 
@@ -128,34 +131,36 @@ def _ssd_dims(cfg: dict) -> tuple[int, int, int, int]:
     return d_in // P, P, cfg["ssm_state"], cfg["ssm_chunk"]
 
 
-def prefill_flops(cfg: dict, B: int, S: int) -> float:
+def prefill_flops(cfg: dict, leaves: list[Leaf], mixers: dict, B: int,
+                  S: int) -> float:
     """Model FLOPs of one prefill of [B, S] tokens: 2 per active parameter
     per token in the layers, the LM head on the last position only, and the
     forward's attention."""
     k_of_e = cfg.get("experts_per_token", 0) / max(cfg.get("n_experts", 0), 1)
     total = 0.0
-    for leaf in leaves(cfg):
+    for leaf in leaves:
         n = float(np.prod(leaf.shape))
         if leaf.path[0] == "units":
             total += 2 * n * B * S * (k_of_e if _is_expert(leaf) else 1.0)
     total += 2 * cfg["d_model"] * cfg["vocab_size"] * B
-    if _n_mixers(cfg, "attn"):
-        total += _n_mixers(cfg, "attn") * 4 * B * cfg["n_heads"] * (
+    if mixers["attn"]:
+        total += mixers["attn"] * 4 * B * cfg["n_heads"] * (
             cfg["head_dim"] * flash_pairs(S, S, True,
                                           cfg.get("sliding_window", 0)))
-    if _n_mixers(cfg, "mamba"):
-        total += _n_mixers(cfg, "mamba") * ssd_flops(B, S, *_ssd_dims(cfg))
+    if mixers["mamba"]:
+        total += mixers["mamba"] * ssd_flops(B, S, *_ssd_dims(cfg))
     return total
 
 
-def decode_bytes(cfg: dict, B: int, context: int) -> float:
+def decode_bytes(cfg: dict, leaves: list[Leaf], mixers: dict, B: int,
+                 context: int) -> float:
     """Bytes one decode step of B rows reads at least, the new token at
     position ``context`` (so ``context + 1`` positions in the cache): every
     weight of the layers and the LM head once (every expert: B rows of k
     picks each touch nearly all of them), the embedding rows of the B
     tokens, and the cache's K and V of the visible positions."""
     total = 0.0
-    for leaf in leaves(cfg):
+    for leaf in leaves:
         item = _ITEM[leaf.dtype]
         if leaf.path == ("embed",):
             total += B * leaf.shape[1] * item
@@ -163,10 +168,10 @@ def decode_bytes(cfg: dict, B: int, context: int) -> float:
                 total += float(np.prod(leaf.shape)) * item
         else:
             total += float(np.prod(leaf.shape)) * item
-    if _n_mixers(cfg, "attn"):
+    if mixers["attn"]:
         window = cfg.get("sliding_window", 0)
         seen = min(context + 1, window) if window else context + 1
-        total += (_n_mixers(cfg, "attn") * 2 * B * seen * cfg["n_kv_heads"]
+        total += (mixers["attn"] * 2 * B * seen * cfg["n_kv_heads"]
                   * cfg["head_dim"] * _ITEM[cfg["dtype"]])
     return total
 

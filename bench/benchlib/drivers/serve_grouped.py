@@ -22,11 +22,10 @@ import time
 import numpy as np
 import torch
 
-from benchlib import compare, reference, traffic
+from benchlib import compare, spec, traffic
 from benchlib import trace as trace_lib
 from benchlib import weights
-from benchlib.record import (Context, Outcome, Run, peak_bytes, port_config,
-                             release, sync)
+from benchlib.record import Context, Outcome, Run, peak_bytes, release, sync
 
 
 def _instrument(model, device, traced: bool, marks: dict):
@@ -109,9 +108,9 @@ def program(ctx: Context, alter=None):
     from repro_torch.launch.serve import generate
     from repro_torch.models import get_model
 
-    mix = ctx.mix
-    model = get_model(port_config(ctx.cfg), device=ctx.device)
-    params = weights.tree(ctx.cfg, ctx.seed, ctx.device)
+    mix, arch = ctx.mix, spec.architecture(ctx.cfg)
+    model = get_model(arch.port_config(ctx.cfg), device=ctx.device)
+    params = weights.tree(arch.leaves(ctx.cfg), ctx.seed, ctx.device)
     marks: dict = {}
     served = _instrument(model, ctx.device, ctx.trace, marks)
     lengths = traffic.serve_lengths(mix)
@@ -145,8 +144,8 @@ def check(ctx: Context, batches: list[dict], lowp_too: str | None = None):
     and tokens), under ``control.``, and each position's gaps and the
     reference's narrowest router margin there, for the look."""
     reqs = requests_of(ctx, batches, sample(ctx, batches))
-    sides = reference.serve_logits(ctx.cfg, ctx.seed, reqs, ctx.device,
-                                   lowp_too)
+    sides = spec.architecture(ctx.cfg).serve_logits(ctx.cfg, ctx.seed, reqs,
+                                                    ctx.device, lowp_too)
     ref = sides[0]
     gaps = [g for lg, r in zip(ref, reqs)
             for g in compare.logit_gaps(lg, r["served"])]

@@ -17,10 +17,9 @@ import time
 
 import torch
 
-from benchlib import compare, reference, traffic, weights
+from benchlib import compare, spec, traffic, weights
 from benchlib import trace as trace_lib
-from benchlib.record import (Context, Outcome, Run, peak_bytes, port_config,
-                             release, sync)
+from benchlib.record import Context, Outcome, Run, peak_bytes, release, sync
 
 
 def _diff_norm(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -37,11 +36,11 @@ def build(ctx: Context):
     from repro_torch.launch.train import setup
     from repro_torch.train.state import TrainState
 
-    mix = ctx.mix
-    t = setup(port_config(ctx.cfg), steps=mix["schedule_steps"],
+    mix, arch = ctx.mix, spec.architecture(ctx.cfg)
+    t = setup(arch.port_config(ctx.cfg), steps=mix["schedule_steps"],
               batch=mix["batch"], seq=mix["seq"], lr=mix["lr"], seed=ctx.seed,
               device=ctx.device)
-    params = weights.tree(ctx.cfg, ctx.seed, ctx.device)
+    params = weights.tree(arch.leaves(ctx.cfg), ctx.seed, ctx.device)
     return t, TrainState(step=0, params=params, opt=t.optimizer.init(params),
                          rng=ctx.seed + 1)
 
@@ -64,7 +63,7 @@ def checked_steps(ctx: Context, t, state):
                      for path, mu in leaves_with_path(state.opt.m)}
     change = {}
     with torch.no_grad():
-        for leaf in weights.leaves(ctx.cfg):
+        for leaf in spec.architecture(ctx.cfg).leaves(ctx.cfg):
             change[leaf.path] = _diff_norm(
                 weights.get(state.params, leaf.path),
                 weights.draw(leaf, ctx.seed, ctx.device))
@@ -128,8 +127,8 @@ def run(ctx: Context, step=None) -> Outcome:
     peak = peak_bytes(ctx.device)
     del state, t
     release(ctx.device)
-    ref = reference.train_readings(ctx.cfg, ctx.mix, ctx.seed, ctx.device,
-                                   steps=ctx.mix["check_steps"])
+    ref = spec.architecture(ctx.cfg).train_readings(
+        ctx.cfg, ctx.mix, ctx.seed, ctx.device, steps=ctx.mix["check_steps"])
     failed = sum(not math.isfinite(s["loss"]) for s in steps)
     run_ = Run("train", ctx.cfg, ctx.mix, setup_s, window_s, peak, steps, tr,
                launches)

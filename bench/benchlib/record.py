@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from dataclasses import dataclass, field
 
@@ -50,15 +49,6 @@ class Outcome:
     attempted: int
     failed: int
     numbers: dict          # the numbers compared, by name
-
-
-def port_config(cfg: dict):
-    """The port's ``ModelConfig`` of a configuration file: the file's keys
-    that are the dataclass's fields."""
-    from repro_torch.configs.base import ModelConfig
-
-    names = {f.name for f in dataclasses.fields(ModelConfig)}
-    return ModelConfig(**{k: v for k, v in cfg.items() if k in names})
 
 
 def sync(device: torch.device) -> None:

@@ -24,10 +24,31 @@ the control, the step below bf16 (symmetric, one scale a tensor).  The
 calibration (``bench/calibrate.py``) also reads ``"fp8"`` (e4m3 forward,
 e5m2 backward, one scale a tensor) and ``"bf16"`` (the program's own
 precision: what rounding alone does to the numbers compared).
+
+This module is also the architecture module of the configurations whose
+``reference`` key names it (``spec.architecture`` loads it by that path):
+the dense, MoE and SSM decoders, one sub-layer a unit.  An architecture
+module states what differs by architecture, and nothing else:
+
+- ``leaves(cfg)``: the leaf list, in the port's tree layout;
+- ``mixers(cfg)``: the number of sub-layers of each mixer kind,
+  ``{"attn": n, "mamba": n}``;
+- ``port_config(cfg)``: the port's configuration object;
+- ``Model``: the float32 reference's model, ``Model(cfg, lowp)``.
+
+The harness works out the rest alike for every architecture
+(``spec.Architecture``): the reference's walks, ``train_readings_on`` and
+``serve_logits_on``, run the module's ``Model`` on its leaves, and the
+model-level counts are ``counts``' arithmetic on its leaves and mixers.
+Another architecture's module builds on the pieces here: a subclass of
+``Model`` whose blocks it overrides where its architecture differs (the
+blocks run whatever sub-layers a unit holds), and
+``weights.sublayer_leaves``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -263,7 +284,7 @@ class Model:
 
     # ------------------------------------------------------------ layers
     def layer(self, sp, h, cap_len: int):
-        """One unit (``sub0``): -> (h, aux loss of its MoE or 0)."""
+        """One sub-layer: -> (h, aux loss of its MoE or 0)."""
         x = rmsnorm(h, sp["mixer_norm"], self.eps)
         if "attn" in sp:
             h = h + self.attention(sp["attn"], x)
@@ -278,6 +299,15 @@ class Model:
             else:
                 y = self.mlp(sp["mlp"], x)
             h = h + y
+        return h, aux
+
+    def unit(self, up, h, cap_len: int):
+        """One unit, its sub-layers (``sub0``, ``sub1``, ...) in order: ->
+        (h, the sum of their aux losses)."""
+        aux = h.new_zeros(())
+        for j in range(len(up)):
+            h, a = self.layer(up[f"sub{j}"], h, cap_len)
+            aux = aux + a
         return h, aux
 
     def head(self, params):
@@ -295,9 +325,8 @@ class Model:
         h = params["embed"][tokens.long()]
         S = tokens.shape[1]
         aux = h.new_zeros(())
-        for sp in params["units"]:
-            h, a = checkpoint(self.layer, sp["sub0"], h, S,
-                              use_reentrant=False)
+        for up in params["units"]:
+            h, a = checkpoint(self.unit, up, h, S, use_reentrant=False)
             aux = aux + a
         hf, lf = h.reshape(-1, h.shape[-1]), labels.reshape(-1)
         head = self.head(params)
@@ -329,18 +358,18 @@ def lr_at(mix: dict, step: int) -> float:
                    * (1 + math.cos(math.pi * prog)))
 
 
-def train_readings(cfg: dict, mix: dict, seed: int, device, *,
-                   lowp: str | None = None, rows: slice | None = None,
-                   steps: int = 3) -> dict:
-    """``steps`` AdamW steps of the reference from the seed's weights on
-    the seed's batches (``rows`` of each, where given): each step's loss,
-    the first clipped gradient's norm per leaf, and each leaf's change
-    after the last step."""
+def train_readings_on(spec: list[weights.Leaf], cfg: dict, mix: dict,
+                      seed: int, device, *, model=Model,
+                      lowp: str | None = None, rows: slice | None = None,
+                      steps: int = 3) -> dict:
+    """``steps`` AdamW steps of the reference ``model`` (the class) over the
+    leaves ``spec`` from the seed's weights on the seed's batches (``rows``
+    of each, where given): each step's loss, the first clipped gradient's
+    norm per leaf, and each leaf's change after the last step."""
     if device.type == "cuda":
         no_tf32()
-    model = Model(cfg, lowp)
+    model = model(cfg, lowp)
     o = mix["adamw"]
-    spec = weights.leaves(cfg)
     params: dict = {}
     for leaf in spec:
         weights.insert(params, leaf.path, weights.draw(
@@ -383,50 +412,98 @@ def train_readings(cfg: dict, mix: dict, seed: int, device, *,
 # ---------------------------------------------------------------- serve
 
 @torch.no_grad()
-def serve_logits(cfg: dict, seed: int, requests: list[dict], device,
-                 lowp_too: str | None = None) -> list:
+def serve_logits_on(spec: list[weights.Leaf], cfg: dict, seed: int,
+                    requests: list[dict], device,
+                    lowp_too: str | None = None, *, model=Model) -> list:
     """For each request ``{"prompt": [L] int, "served": [n] int}``, the
-    logits [n, V] at the positions that chose the served tokens (the last
-    prompt position, then each served token but the last), a layer at a
-    time with that layer's weights drawn again.  With ``lowp_too`` also
-    the control's, as a second list, and a third: at each of those
-    positions the narrowest margin between the k-th and the next router
-    logit over the MoE layers (the nearest routing tie; empty without
-    MoE)."""
+    reference ``model``'s (the class) logits [n, V] at the positions that
+    chose the served tokens (the last prompt position, then each served
+    token but the last), a unit at a time with that unit's leaves of
+    ``spec`` drawn again.  With ``lowp_too`` also the control's, as a
+    second list, and a third: at each of those positions the narrowest
+    margin between the k-th and the next router logit over the MoE layers
+    (the nearest routing tie; empty without MoE)."""
     if device.type == "cuda":
         no_tf32()
-    models = [Model(cfg)] + ([Model(cfg, lowp_too)] if lowp_too else [])
-    first, last = weights.top_leaves(cfg)
-    embed = weights.draw(first[0], seed, device, torch.float32)
+    models = [model(cfg)] + ([model(cfg, lowp_too)] if lowp_too else [])
+    units: dict = {}
+    for leaf in spec:
+        if leaf.path[0] == "units":
+            units.setdefault(leaf.path[1], []).append(leaf)
+    top_spec = [leaf for leaf in spec if leaf.path[0] != "units"]
+    embed = weights.draw(next(leaf for leaf in top_spec
+                              if leaf.path == ("embed",)),
+                         seed, device, torch.float32)
     seqs = [torch.cat([r["prompt"], r["served"][:-1]]).to(device).long()
             for r in requests]
     hs = [[embed[s][None] for s in seqs] for _ in models]
     del embed
     margins = [None] * len(requests)
-    for i in range(cfg["n_layers"]):
-        sp: dict = {}
-        for leaf in weights.layer_leaves(cfg, i):
-            weights.insert(sp, leaf.path[3:], weights.draw(
+    for i in sorted(units):
+        up: dict = {}
+        for leaf in units[i]:
+            weights.insert(up, leaf.path[2:], weights.draw(
                 leaf, seed, device, torch.float32))
-        for model, h in zip(models, hs):
+        for side, h in zip(models, hs):
             for j, r in enumerate(requests):
-                model.margins = [] if lowp_too and model is models[0] else None
-                h[j] = model.layer(sp, h[j], len(r["prompt"]))[0]
-                for m in model.margins or []:
+                side.margins = [] if lowp_too and side is models[0] else None
+                h[j] = side.unit(up, h[j], len(r["prompt"]))[0]
+                for m in side.margins or []:
                     m = m[0, len(r["prompt"]) - 1:]
                     margins[j] = m if margins[j] is None else torch.minimum(
                         margins[j], m)
-        del sp
+        del up
     top: dict = {}
-    for leaf in first + last:
+    for leaf in top_spec:
         weights.insert(top, leaf.path, weights.draw(leaf, seed, device,
                                                     torch.float32))
     out = []
-    for model, h in zip(models, hs):
-        head = model.head(top)
-        out.append([model.mm(rmsnorm(x[0, len(r["prompt"]) - 1:],
-                                     top["final_norm"], model.eps), head)
+    for side, h in zip(models, hs):
+        head = side.head(top)
+        out.append([side.mm(rmsnorm(x[0, len(r["prompt"]) - 1:],
+                                    top["final_norm"], side.eps), head)
                     for x, r in zip(h, requests)])
     if lowp_too:
         out.append([[] if m is None else m.tolist() for m in margins])
     return out
+
+
+# ------------------------------------------------------- the architecture
+
+def _mixer(cfg: dict) -> str:
+    if cfg["family"] in ("dense", "moe"):
+        return "attn"
+    if cfg["family"] == "ssm":
+        return "mamba"
+    raise ValueError(f"family {cfg['family']!r} has no weights layout here")
+
+
+def _ffn(cfg: dict) -> str | None:
+    if cfg.get("d_ff", 0) <= 0:
+        return None
+    return "moe" if cfg.get("n_experts", 0) else "mlp"
+
+
+def leaves(cfg: dict) -> list[weights.Leaf]:
+    """The embedding, ``n_layers`` units of one sub-layer each (the
+    family's mixer, then its FFN, if any), the final norm and the LM head
+    (none where the embedding is tied)."""
+    first, last = weights.top_leaves(cfg)
+    mixer, ffn = _mixer(cfg), _ffn(cfg)
+    return first + [leaf for i in range(cfg["n_layers"])
+                    for leaf in weights.sublayer_leaves(
+                        cfg, ("units", i, "sub0"), mixer, ffn)] + last
+
+
+def mixers(cfg: dict) -> dict[str, int]:
+    return {"attn": 0, "mamba": 0, _mixer(cfg): cfg["n_layers"]}
+
+
+def port_config(cfg: dict):
+    """The port's ``ModelConfig`` of a configuration file: the file's keys
+    that are the dataclass's fields."""
+    from repro_torch.configs.base import ModelConfig
+
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    return ModelConfig(**{k: v for k, v in cfg.items() if k in names})
+

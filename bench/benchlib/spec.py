@@ -9,18 +9,66 @@ each lives in a file of its own:
     bench/limits/<workload>.json    the limits of the numbers compared
     bench/metrics/<metric>.py       a metric's reader: ``read(run)``
 
-So a configuration, a mix, a cell or a metric is added by adding files and
-entries, without editing a file that is there.
+A configuration's ``reference`` key names, by its path from the root of
+the checkout, its architecture module (``architecture``): the one place
+the harness learns an architecture from.  The module states the entries
+of ``ARCHITECTURE`` (``benchlib/reference.py`` says what each is); the
+rest, the same for every architecture, is ``Architecture``'s.
+
+So a configuration, an architecture, a mix, a cell or a metric is added by
+adding files and entries, without editing a file that is there.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib
 import importlib.util
 import json
 from pathlib import Path
 
+from benchlib import counts, reference
+
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+
+#: What an architecture module states.
+ARCHITECTURE = ("leaves", "mixers", "port_config", "Model")
+
+
+class Architecture:
+    """An architecture module's entries, and what the harness works out
+    from them alike for every architecture: the float32 reference's walks
+    run the module's ``Model`` on its leaves, and the model-level counts
+    are ``counts``' arithmetic on its leaves and mixers."""
+
+    def __init__(self, module):
+        self.module = module
+        self.leaves, self.mixers, self.port_config, self.Model = (
+            getattr(module, name) for name in ARCHITECTURE)
+
+    def train_readings(self, cfg: dict, mix: dict, seed: int, device,
+                       **kw) -> dict:
+        return reference.train_readings_on(self.leaves(cfg), cfg, mix, seed,
+                                           device, model=self.Model, **kw)
+
+    def serve_logits(self, cfg: dict, seed: int, requests: list[dict],
+                     device, lowp_too: str | None = None) -> list:
+        return reference.serve_logits_on(self.leaves(cfg), cfg, seed,
+                                         requests, device, lowp_too,
+                                         model=self.Model)
+
+    def train_flops(self, cfg: dict, B: int, S: int) -> float:
+        return counts.train_flops(cfg, self.leaves(cfg), self.mixers(cfg), B,
+                                  S)
+
+    def prefill_flops(self, cfg: dict, B: int, S: int) -> float:
+        return counts.prefill_flops(cfg, self.leaves(cfg), self.mixers(cfg),
+                                    B, S)
+
+    def decode_bytes(self, cfg: dict, B: int, context: int) -> float:
+        return counts.decode_bytes(cfg, self.leaves(cfg), self.mixers(cfg),
+                                   B, context)
 
 
 def benchmark() -> dict:
@@ -53,6 +101,38 @@ def traffic(name: str) -> dict:
 
 def limits(workload_name: str) -> dict:
     return _json("limits", workload_name)
+
+
+@functools.cache
+def _architecture(path: Path) -> Architecture:
+    if not path.is_file():
+        raise FileNotFoundError(f"architecture module {path} does not exist")
+    lib = (BENCH / "benchlib").resolve()
+    if path.is_relative_to(lib):     # a module of the package: import it once
+        module = importlib.import_module(".".join(
+            ("benchlib",) + path.relative_to(lib).with_suffix("").parts))
+    else:
+        spec = importlib.util.spec_from_file_location(
+            "bench_arch_" + "".join(c if c.isalnum() else "_"
+                                    for c in str(path)), path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    missing = [n for n in ARCHITECTURE if not callable(getattr(module, n,
+                                                               None))]
+    if missing:
+        raise AttributeError(f"architecture module {path} states no "
+                             f"{', '.join(missing)}")
+    return Architecture(module)
+
+
+def architecture(cfg: dict) -> Architecture:
+    """The architecture of the module that the configuration's
+    ``reference`` key names (a path from the root), which states every
+    entry of ``ARCHITECTURE``; loaded once a process."""
+    if "reference" not in cfg:
+        raise KeyError(f"configuration {cfg.get('name')!r} names no "
+                       "architecture module (its 'reference' key)")
+    return _architecture((ROOT / cfg["reference"]).resolve())
 
 
 def reader(metric: str):

@@ -6,8 +6,12 @@ bit-equal: the program gets the whole tree once, and the reference draws
 each layer again when it needs it, in float32 from the same values.  A
 leaf is drawn in one call, in the dtype it is served in.
 
-The tree has the port's layout (a list of units of one sub-layer each, the
-weights [in, out]); ``leaves`` is the benchmark's own statement of it.
+The tree has the port's layout (a list of units, each a dict of
+sub-layers ``sub0``, ``sub1``, ...; the weights [in, out]).  Which
+sub-layers a configuration's units hold is its architecture module's
+``leaves`` (``spec.architecture``), built from ``sublayer_leaves`` and
+``top_leaves`` here.
+
 Distributions (the configuration file lists them under ``assumed``):
 products N(0, 1/fan_in); the embedding N(0, 1/d_model); norm scales
 N(1, 0.1^2); the Mamba mixer's A = -exp(A_log) with exp(A_log) uniform in
@@ -39,37 +43,25 @@ def derive(seed: int, tag: str) -> int:
     return int.from_bytes(digest, "little") & ((1 << 63) - 1)
 
 
-def mixer(cfg: dict) -> str:
-    if cfg["family"] in ("dense", "moe"):
-        return "attn"
-    if cfg["family"] == "ssm":
-        return "mamba"
-    raise ValueError(f"family {cfg['family']!r} has no weights layout here")
-
-
-def ffn(cfg: dict) -> str | None:
-    if cfg.get("d_ff", 0) <= 0:
-        return None
-    return "moe" if cfg.get("n_experts", 0) else "mlp"
-
-
-def layer_leaves(cfg: dict, i: int) -> list[Leaf]:
+def sublayer_leaves(cfg: dict, at: tuple, mixer: str,
+                    ffn: str | None) -> list[Leaf]:
+    """The leaves of one sub-layer at path ``at``: its ``mixer`` (``attn``
+    or ``mamba``) and its ``ffn`` (``mlp``, ``moe`` or None)."""
     D, dt = cfg["d_model"], cfg["dtype"]
-    u = ("units", i, "sub0")
-    out = [Leaf(u + ("mixer_norm",), (D,), dt, "norm", 0.1)]
-    if mixer(cfg) == "attn":
+    out = [Leaf(at + ("mixer_norm",), (D,), dt, "norm", 0.1)]
+    if mixer == "attn":
         H, KV, hd = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
-        a = u + ("attn",)
+        a = at + ("attn",)
         out += [Leaf(a + ("wq",), (D, H * hd), dt, "normal", D ** -0.5),
                 Leaf(a + ("wk",), (D, KV * hd), dt, "normal", D ** -0.5),
                 Leaf(a + ("wv",), (D, KV * hd), dt, "normal", D ** -0.5),
                 Leaf(a + ("wo",), (H * hd, D), dt, "normal",
                      (H * hd) ** -0.5)]
-    else:
+    elif mixer == "mamba":
         d_in = cfg["ssm_expand"] * D
         N, P, K = cfg["ssm_state"], cfg["ssm_head_dim"], cfg["ssm_conv"]
         H, ch = d_in // P, d_in + 2 * N
-        m = u + ("mamba",)
+        m = at + ("mamba",)
         out += [Leaf(m + ("in_proj",), (D, 2 * d_in + 2 * N + H), dt,
                      "normal", D ** -0.5),
                 Leaf(m + ("conv_w",), (K, ch), dt, "normal", K ** -0.5),
@@ -80,23 +72,26 @@ def layer_leaves(cfg: dict, i: int) -> list[Leaf]:
                 Leaf(m + ("norm_scale",), (d_in,), dt, "norm", 0.1),
                 Leaf(m + ("out_proj",), (d_in, D), dt, "normal",
                      d_in ** -0.5)]
-    kind = ffn(cfg)
-    if kind:
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if ffn:
         F = cfg["d_ff"]
-        out.append(Leaf(u + ("ffn_norm",), (D,), dt, "norm", 0.1))
-        if kind == "moe":
-            E, f = cfg["n_experts"], u + ("moe",)
+        out.append(Leaf(at + ("ffn_norm",), (D,), dt, "norm", 0.1))
+        if ffn == "moe":
+            E, f = cfg["n_experts"], at + ("moe",)
             out += [Leaf(f + ("router",), (D, E), "float32", "normal",
                          D ** -0.5),
                     Leaf(f + ("w_gate",), (E, D, F), dt, "normal", D ** -0.5),
                     Leaf(f + ("w_up",), (E, D, F), dt, "normal", D ** -0.5),
                     Leaf(f + ("w_down",), (E, F, D), dt, "normal",
                          F ** -0.5)]
-        else:
-            f = u + ("mlp",)
+        elif ffn == "mlp":
+            f = at + ("mlp",)
             out += [Leaf(f + ("w_gate",), (D, F), dt, "normal", D ** -0.5),
                     Leaf(f + ("w_up",), (D, F), dt, "normal", D ** -0.5),
                     Leaf(f + ("w_down",), (F, D), dt, "normal", F ** -0.5)]
+        else:
+            raise ValueError(f"unknown ffn {ffn!r}")
     return out
 
 
@@ -107,12 +102,6 @@ def top_leaves(cfg: dict) -> tuple[list[Leaf], list[Leaf]]:
     if not cfg.get("tie_embeddings", False):
         head.append(Leaf(("lm_head",), (D, V), dt, "normal", D ** -0.5))
     return [Leaf(("embed",), (V, D), dt, "normal", D ** -0.5)], head
-
-
-def leaves(cfg: dict) -> list[Leaf]:
-    first, last = top_leaves(cfg)
-    return first + [leaf for i in range(cfg["n_layers"])
-                    for leaf in layer_leaves(cfg, i)] + last
 
 
 def draw(leaf: Leaf, seed: int, device, dtype=None) -> torch.Tensor:
@@ -149,10 +138,10 @@ def insert(tree: dict, path: tuple, value) -> None:
     node[path[-1]] = value
 
 
-def tree(cfg: dict, seed: int, device, dtype=None) -> dict:
-    """Every leaf, in the port's tree layout."""
+def tree(leaves: list[Leaf], seed: int, device, dtype=None) -> dict:
+    """Every leaf of ``leaves`` at its path (the port's tree layout)."""
     out: dict = {}
-    for leaf in leaves(cfg):
+    for leaf in leaves:
         insert(out, leaf.path, draw(leaf, seed, device, dtype))
     return out
 

@@ -64,6 +64,7 @@ def detail(prog: dict, ref: dict, limits: dict) -> dict:
 
 
 def train_cell(cfg, mix, limits, args, device) -> None:
+    arch = spec.architecture(cfg)
     for seed in args.seeds:
         ctx = Context(cfg, mix, seed, 0.0, False, device, time.perf_counter())
         t, state = train.build(ctx)
@@ -71,22 +72,22 @@ def train_cell(cfg, mix, limits, args, device) -> None:
         del t, state
         release(device)
         t0 = time.perf_counter()
-        ref = reference.train_readings(cfg, mix, seed, device)
+        ref = arch.train_readings(cfg, mix, seed, device)
         say(side="program", seed=seed, reference_s=time.perf_counter() - t0,
             **detail(prog, ref, limits))
         release(device)
     for seed in args.control_seeds:
-        ref = reference.train_readings(cfg, mix, seed, device)
+        ref = arch.train_readings(cfg, mix, seed, device)
         for control in args.controls:
-            low = reference.train_readings(cfg, mix, seed, device,
-                                           lowp=control)
+            low = arch.train_readings(cfg, mix, seed, device,
+                                      lowp=control)
             say(side="control", control=control, seed=seed,
                 **detail(low, ref, limits))
             release(device)
     for seed in args.fault_seeds:
-        ref = reference.train_readings(cfg, mix, seed, device)
-        half = reference.train_readings(cfg, mix, seed, device,
-                                        rows=slice(0, mix["batch"] // 2))
+        ref = arch.train_readings(cfg, mix, seed, device)
+        half = arch.train_readings(cfg, mix, seed, device,
+                                   rows=slice(0, mix["batch"] // 2))
         say(side="half_batch", seed=seed, **detail(half, ref, limits))
         release(device)
 

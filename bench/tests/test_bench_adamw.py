@@ -9,7 +9,7 @@ import math
 import pytest
 from bench_tiny import MOE, SSM, TRAIN, ctx
 
-from benchlib import counts, spec, weights
+from benchlib import counts, spec
 from benchlib.drivers import train
 from benchlib.record import Run
 from benchlib.trace import Trace
@@ -61,7 +61,7 @@ def _read(run):
 def test_reads_the_least_bytes_over_the_device_time_in_the_span(cfg):
     # 200 us a step in the span: copy 2, sumsq 30, finish 3, update 165.
     n_bytes = sum(math.prod(leaf.shape) * (4 * 4 + 16)   # float32 leaves
-                  for leaf in weights.leaves(cfg))
+                  for leaf in spec.architecture(cfg).leaves(cfg))
     want = 100 * 2 * n_bytes / counts.HBM_BYTES_PER_S / 400e-6
     assert _read(_run(cfg, _events())) == pytest.approx(want)
 
@@ -70,7 +70,7 @@ def test_counts_each_leaf_in_its_dtype():
     # mixtral's float32 router beside bf16 weights: 24 bytes a bf16
     # element, 32 a float32 one.
     cfg = {**MOE, "dtype": "bfloat16"}
-    leaves = weights.leaves(cfg)
+    leaves = spec.architecture(cfg).leaves(cfg)
     assert {leaf.dtype for leaf in leaves} == {"bfloat16", "float32"}
     n_bytes = sum(math.prod(leaf.shape) * (24 if leaf.dtype == "bfloat16"
                                            else 32) for leaf in leaves)

@@ -1,11 +1,12 @@
 """The benchmark's operation and byte counts against values worked out by
-hand at small shapes."""
+hand at small shapes: the kernels' (``counts``) and, through each
+configuration's architecture (``spec.architecture``), the models'."""
 
 import pytest
 import torch
 from bench_tiny import MOE, SSM
 
-from benchlib import counts
+from benchlib import counts, spec
 
 
 def _mask_pairs(Sq, Sk, causal, window):
@@ -75,7 +76,8 @@ def test_train_flops_by_hand():
                  + E * 3 * D * F * 2 / E          # 2 of 4 experts
                  + D + D * V)                     # final norm, LM head
     want = 6 * per_token * B * S + 3 * 4 * B * 4 * 16 * 36   # 36 pairs
-    assert counts.train_flops(cfg, B, S) == pytest.approx(want)
+    assert spec.architecture(cfg).train_flops(cfg, B, S) == pytest.approx(
+        want)
 
 
 def test_ssm_train_flops_count_the_tied_head_and_the_scan():
@@ -86,7 +88,8 @@ def test_ssm_train_flops_count_the_tied_head_and_the_scan():
              + 3 * H + d_in + d_in * D)
     want = 6 * (D + mixer + D + V * D) * B * S + 3 * counts.ssd_flops(
         B, S, H, P, N, 16)
-    assert counts.train_flops(cfg, B, S) == pytest.approx(want)
+    assert spec.architecture(cfg).train_flops(cfg, B, S) == pytest.approx(
+        want)
 
 
 def test_prefill_flops_and_decode_bytes_by_hand():
@@ -95,9 +98,10 @@ def test_prefill_flops_and_decode_bytes_by_hand():
     layer = (D * 4 * 16 * 2 + 2 * D * 2 * 16 + 2 * D + D * E
              + E * 3 * D * F * 2 / E)
     want = 2 * layer * B * S + 2 * D * V * B + 4 * B * 4 * 16 * 36
-    assert counts.prefill_flops(cfg, B, S) == pytest.approx(want)
+    arch = spec.architecture(cfg)
+    assert arch.prefill_flops(cfg, B, S) == pytest.approx(want)
     weights = 4 * (D * 4 * 16 * 2 + 2 * D * 2 * 16 + 2 * D + D * E
                    + E * 3 * D * F + D + D * V)   # float32: 4 bytes
     cache = 2 * B * 10 * 2 * 16 * 4              # K and V of 10 positions
-    assert counts.decode_bytes(cfg, B, 9) == pytest.approx(
+    assert arch.decode_bytes(cfg, B, 9) == pytest.approx(
         weights + B * D * 4 + cache)

@@ -8,9 +8,9 @@ import shutil
 
 import pytest
 import torch
-from bench_tiny import CPU, MOE, SERVE, TRAIN, ctx
+from bench_tiny import CPU, HYBRID, MOE, SERVE, TRAIN, ctx, unchanged
 
-from benchlib import cli, spec, traffic, weights
+from benchlib import cli, reference, spec, traffic, weights
 from benchlib.drivers import serve_grouped, train
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -32,30 +32,53 @@ def test_every_cell_finds_its_files_by_name():
 
 def test_a_new_metric_config_and_mix_are_files_and_entries(tmp_path,
                                                            monkeypatch):
-    """A copy of ``bench/`` and ``BENCHMARK.json`` with a metric, a
-    configuration, a mix and a cell added as new files and new entries,
-    no file that was there edited: the harness finds all four."""
+    """A copy of ``bench/`` (without its tests) and ``BENCHMARK.json`` with
+    a metric, two configurations, two mixes and three cells added as new
+    files and new entries, no file that was there edited: the harness finds
+    them all.  One configuration is of a new architecture (the port's
+    hybrid layout, NoPE attention), its module a new file that the
+    configuration names, with a reference ``Model`` of its own: it trains
+    and serves through the unchanged drivers, correct, and its train step
+    broken underneath (the state left unchanged) is not."""
     copy = tmp_path / "bench"
     shutil.copytree(spec.BENCH, copy, ignore=shutil.ignore_patterns(
-        "__pycache__", ".cache"))
+        "__pycache__", ".cache", "tests"))
     before = {p: p.read_bytes() for p in copy.rglob("*") if p.is_file()}
     bench = spec.benchmark()
     (copy / "metrics" / "steps_done.py").write_text(
         "def read(run):\n    return float(len(run.steps))\n")
-    (copy / "configs" / "tiny-moe.json").write_text(json.dumps(MOE))
+    (copy / "archs").mkdir()
+    shutil.copy(spec.BENCH / HYBRID["reference"].removeprefix("bench/"),
+                copy / "archs" / "tiny_hybrid.py")
+    hybrid = dict(HYBRID, reference="bench/archs/tiny_hybrid.py")
+    for cfg in (MOE, hybrid):
+        (copy / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
+        bench["configs"].append({"name": cfg["name"], "source": "test",
+                                 "file": f"bench/configs/{cfg['name']}.json",
+                                 "reduced": [], "why": "test"})
     (copy / "traffic" / "tiny-train.json").write_text(json.dumps(TRAIN))
-    (copy / "limits" / "tiny-moe.tiny-train.json").write_text(json.dumps(
-        {"grad_gap.median_leaf": 1e-3, "change_gap.worst_leaf": 1e-3}))
-    bench["configs"].append({"name": "tiny-moe", "source": "test",
-                             "file": "bench/configs/tiny-moe.json",
-                             "reduced": [], "why": "test"})
-    bench["workloads"].append({"name": "tiny-moe.tiny-train",
-                               "config": "tiny-moe", "traffic": "tiny-train",
-                               "chips": 1, "why": "test"})
+    (copy / "traffic" / "tiny-serve.json").write_text(json.dumps(SERVE))
+    train_limits = {"grad_gap.median_leaf": 1e-3,
+                    "change_gap.worst_leaf": 1e-3}
+    cells = {"tiny-moe.tiny-train": train_limits,
+             "tiny-hybrid.tiny-train": train_limits,
+             "tiny-hybrid.tiny-serve": {"logit_gap.mean": 1e-3,
+                                        "miss_share": 1e-3}}
+    for name, limits in cells.items():
+        (copy / "limits" / f"{name}.json").write_text(json.dumps(limits))
+        config, mix = name.split(".")
+        bench["workloads"].append({"name": name, "config": config,
+                                   "traffic": mix, "chips": 1, "why": "test"})
     bench["per_layer"].append({"name": "steps_done", "unit": "steps",
                                "better": "higher", "source": "host_clock",
                                "layer": "test", "moves": "setup_s",
                                "workloads": ["tiny-moe.tiny-train"]})
+    metrics = {m["name"]: m for m in bench["end_to_end"] + bench["per_layer"]}
+    for m in ("train_tokens_per_s", "mfu.train", "adamw_roofline.train"):
+        metrics[m]["workloads"].append("tiny-hybrid.tiny-train")
+    for m in ("output_tokens_per_s", "mfu.prefill", "hbm_share.decode",
+              "flash_roofline.prefill"):
+        metrics[m]["workloads"].append("tiny-hybrid.tiny-serve")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     monkeypatch.setattr(spec, "BENCH", copy)
     monkeypatch.setattr(spec, "ROOT", tmp_path)
@@ -63,7 +86,49 @@ def test_a_new_metric_config_and_mix_are_files_and_entries(tmp_path,
                         True, CPU, 0.0)
     assert line["metrics"]["steps_done"]["value"] == TRAIN["trace_steps"]
     assert line["correct"] is True
+    line = cli.run_cell(spec.benchmark(), "tiny-hybrid.tiny-train", 5, 60.0,
+                        True, CPU, 0.0)
+    assert line["correct"] is True
+    assert line["metrics"]["mfu.train"]["value"] > 0
+    assert cli.run_cell(spec.benchmark(), "tiny-hybrid.tiny-train", 5, 0.05,
+                        False, CPU, 0.0, step=unchanged)["correct"] is False
+    serve = {trace: cli.run_cell(spec.benchmark(), "tiny-hybrid.tiny-serve",
+                                 5, 0.05, trace, CPU, 0.0)
+             for trace in (False, True)}
+    assert all(x["correct"] is True and x["attempted"] > 0
+               for x in serve.values())
+    assert serve[False]["metrics"]["output_tokens_per_s"]["value"] > 0
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+def test_an_architecture_module_that_is_missing_or_short_fails_by_name(
+        tmp_path, monkeypatch):
+    """No fallback: a configuration that names no module, a module that is
+    not there, or a module without an entry of ``spec.ARCHITECTURE``
+    fails when it loads, and the error names the module and the entry."""
+    monkeypatch.setattr(spec, "ROOT", tmp_path)
+    (tmp_path / "short.py").write_text(
+        "def leaves(cfg):\n    return []\nmixers = 3\n")
+    with pytest.raises(KeyError, match="tiny-moe.*reference"):
+        spec.architecture({k: v for k, v in MOE.items() if k != "reference"})
+    with pytest.raises(FileNotFoundError, match="gone.py"):
+        spec.architecture(dict(MOE, reference="gone.py"))
+    with pytest.raises(AttributeError, match="short.py") as err:
+        spec.architecture(dict(MOE, reference="short.py"))
+    missing = set(spec.ARCHITECTURE) - {"leaves"}
+    assert all(n in str(err.value) for n in missing)
+    assert "leaves," not in str(err.value)
+
+
+def test_a_module_of_the_package_is_loaded_once_by_its_name():
+    """``benchlib/reference.py``, named by its path, is the package's own
+    module and not a second copy of it; a module elsewhere brings its own
+    ``Model``, which the walks run."""
+    assert spec.architecture(MOE).module is reference
+    assert spec.architecture(MOE).Model is reference.Model
+    hybrid = spec.architecture(HYBRID).Model
+    assert issubclass(hybrid, reference.Model)
+    assert hybrid is not reference.Model
 
 
 def test_traffic_is_the_same_for_the_same_seed():
@@ -90,11 +155,13 @@ def test_every_seed_sends_the_same_lengths_in_its_own_order():
 
 
 def test_weights_draw_again_bit_equal_leaf_by_leaf():
-    full = weights.tree(MOE, 99, CPU)
-    for leaf in weights.layer_leaves(MOE, 1):
-        assert torch.equal(weights.get(full, leaf.path),
-                           weights.draw(leaf, 99, CPU))
-    other = weights.tree(MOE, 100, CPU)
+    leaves = spec.architecture(MOE).leaves(MOE)
+    full = weights.tree(leaves, 99, CPU)
+    for leaf in leaves:
+        if leaf.path[:2] == ("units", 1):
+            assert torch.equal(weights.get(full, leaf.path),
+                               weights.draw(leaf, 99, CPU))
+    other = weights.tree(leaves, 100, CPU)
     assert not torch.equal(full["embed"], other["embed"])
 
 

@@ -1,6 +1,8 @@
 """No module the benchmark runs imports JAX or the JAX package ``repro``
 (top-level names compared whole: ``repro_torch`` is not ``repro``), and
-the reference imports none of ``jax``, ``repro`` or ``repro_torch``."""
+no architecture module that a configuration names (``spec.architecture``,
+the committed ones' and the tests'), nor what it is built on, imports
+``repro_torch``, but for ``repro_torch.configs`` inside ``port_config``."""
 
 import ast
 import json
@@ -8,7 +10,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-from benchlib import cli
+from bench_tiny import HYBRID, MOE, SSM
+
+from benchlib import cli, spec
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -25,15 +29,50 @@ def _imports(path: Path) -> set[str]:
     return names
 
 
+def _scoped_imports(path: Path) -> list[tuple[str | None, str]]:
+    """(the enclosing function's name or None, the module's dotted name) of
+    every absolute import in ``path``."""
+    out = []
+
+    def visit(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                out.extend((fn, a.name) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                out.append((fn, child.module))
+            visit(child, child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else fn)
+
+    visit(ast.parse(path.read_text()), None)
+    return out
+
+
+def _configs() -> list[dict]:
+    """Every configuration: the committed ones and the tests'."""
+    return [spec.config(c["name"]) for c in spec.benchmark()["configs"]] + [
+        MOE, SSM, HYBRID]
+
+
+def _architecture_modules() -> list[Path]:
+    return sorted({(ROOT / c["reference"]).resolve() for c in _configs()})
+
+
 def test_no_source_under_bench_names_jax_or_repro():
     for path in BENCH.rglob("*.py"):
         assert not _imports(path) & FORBIDDEN, path
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    names = _imports(BENCH / "benchlib" / "reference.py")
-    assert not names & (FORBIDDEN | {"repro_torch"})
-    for dep in ("traffic", "weights"):
+    modules = _architecture_modules()
+    assert BENCH / "benchlib" / "reference.py" in modules
+    assert BENCH / "tests" / "tiny_hybrid.py" in modules
+    for path in modules:
+        assert not _imports(path) & FORBIDDEN, path
+        for fn, name in _scoped_imports(path):
+            if name.split(".")[0] == "repro_torch":
+                assert fn == "port_config", (path, fn, name)
+                assert name.startswith("repro_torch.configs"), (path, name)
+    for dep in ("traffic", "weights", "counts"):
         assert not _imports(BENCH / "benchlib" / f"{dep}.py") & (
             FORBIDDEN | {"repro_torch"})
 
@@ -63,6 +102,14 @@ def test_what_a_run_loads_holds_no_jax_and_no_repro():
 def test_the_reference_loads_no_program():
     loaded = _loaded_after("import benchlib.reference")
     assert not set(loaded) & (FORBIDDEN | {"repro_torch"})
+    loaded = _loaded_after(
+        "from benchlib import spec\n"
+        f"for cfg in {_configs()!r}: spec.architecture(cfg)")
+    assert not set(loaded) & (FORBIDDEN | {"repro_torch"})
+    loaded = _loaded_after(
+        "from benchlib import spec\n"
+        f"for cfg in {_configs()!r}: spec.architecture(cfg).port_config(cfg)")
+    assert "repro_torch" in loaded and not set(loaded) & FORBIDDEN
 
 
 def test_the_check_compares_top_level_names_whole():

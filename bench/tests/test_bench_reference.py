@@ -6,12 +6,10 @@ batch left out (the mean taken over the rest), served tokens altered where
 they are produced.  (The exchange between chips does not exist in a
 one-chip cell.)"""
 
-import copy
-
 import pytest
-from bench_tiny import MOE, SERVE, SSM, TRAIN, ctx
+from bench_tiny import MOE, SERVE, SSM, TRAIN, ctx, unchanged
 
-from benchlib import cli, compare, reference, spec
+from benchlib import cli, compare, spec
 from benchlib.drivers import serve_grouped, train
 
 TRAIN_CELL = {"moe": "mixtral-8x22b.train-8k", "ssm": "mamba2-370m.train-4k"}
@@ -36,19 +34,12 @@ def test_the_reference_trains_as_the_port_does(family):
 @pytest.mark.parametrize("family", ["moe", "ssm"])
 def test_the_control_fails_the_train_limits(family):
     cfg = CFGS[family]
-    ref = reference.train_readings(cfg, TRAIN, 11, ctx(cfg, TRAIN).device)
-    low = reference.train_readings(cfg, TRAIN, 11, ctx(cfg, TRAIN).device,
-                                   lowp=CONTROL)
+    arch, device = spec.architecture(cfg), ctx(cfg, TRAIN).device
+    ref = arch.train_readings(cfg, TRAIN, 11, device)
+    low = arch.train_readings(cfg, TRAIN, 11, device, lowp=CONTROL)
     checks = compare.held(compare.train_numbers(low, ref),
                           spec.limits(TRAIN_CELL[family]))
     assert not compare.correct(checks), checks
-
-
-def _unchanged(step):
-    def f(state, batch):
-        _, metrics = step(copy.deepcopy(state), batch)
-        return state, metrics
-    return f
 
 
 def _half_batch(step):
@@ -58,7 +49,7 @@ def _half_batch(step):
 
 
 @pytest.mark.parametrize("family", ["moe", "ssm"])
-@pytest.mark.parametrize("fault", [_unchanged, _half_batch])
+@pytest.mark.parametrize("fault", [unchanged, _half_batch])
 def test_a_broken_train_step_is_not_correct(family, fault):
     out = train.run(ctx(CFGS[family], TRAIN), step=fault)
     assert _line(out, TRAIN_CELL[family])["correct"] is False
